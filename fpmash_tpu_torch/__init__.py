@@ -1,0 +1,17 @@
+"""fpmash_tpu_torch — the fp-mash sketch-and-distance pipeline on PyTorch + CUDA.
+
+A port of :mod:`fpmash_tpu` (JAX on a TPU) to PyTorch on an NVIDIA H100.
+Host glue (CLI, FASTA and ``.msh`` IO, statistics) is plain Python and
+numpy; batched compute is PyTorch on an explicit ``device``; every Pallas
+kernel of the JAX package becomes a CUDA C++ kernel written for Hopper
+(``csrc/``), built with ``nvcc`` at first use (``ops/_build.py``).
+
+The package imports ``torch``, ``numpy`` and the standard library, never
+``jax`` or :mod:`fpmash_tpu` (whose ``__init__`` imports JAX), so it runs
+where JAX is not installed.  Host modules it needs are carried as copies.
+
+Ported so far: the fingerprint main path, ``sketch --direct-fp`` and
+``sketch -fp`` to ``.msh``, then ``dist`` over the unsorted hash lists.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,85 @@
+"""`sketch` — fingerprint sketches (CommandSketch.cpp:20-123).
+
+The ported modes: ``--direct-fp`` (FASTA -> shift windows -> CFL -> hash)
+and ``-fp`` (fingerprint ``.txt`` -> hash).  Flags, defaults and output
+bytes are those of ``python -m fpmash_tpu sketch``; ``--device`` replaces
+``--backend``.
+"""
+
+from __future__ import annotations
+
+import sys
+
+from fpmash_tpu_torch.commands.common import (
+    add_device_option,
+    add_sketch_options,
+    expand_inputs,
+    sketch_params_from_args,
+)
+from fpmash_tpu_torch.device import resolve_device
+from fpmash_tpu_torch.models.sketch import Sketch
+from fpmash_tpu_torch.utils.trace import trace
+
+
+def add_parser(sub):
+    p = sub.add_parser(
+        "sketch",
+        help="Create fingerprint sketches.",
+        description="Create a sketch file from fingerprint .txt files (-fp), or "
+        "from FASTA/FASTQ reads fingerprinted on the device (--direct-fp).",
+    )
+    p.add_argument("inputs", nargs="+", metavar="<input>")
+    p.add_argument("-l", "--list", action="store_true", help="Lines in each <input> specify paths to sequence files, one per line.")
+    p.add_argument("-o", "--prefix", default=None, help="Output prefix (first input file used if unspecified). '.msh' appended.")
+    p.add_argument("-I", "--id", default=None, help="ID field for the first sketch (-fp).")
+    p.add_argument("-C", "--comment", default=None, help="Comment for the first sketch (-fp).")
+    p.add_argument("-fp", "--fingerprint", action="store_true", help="Inputs are fingerprint .txt files instead of sequences.")
+    p.add_argument("--direct-fp", action="store_true", help="Integrated pipeline: FASTA inputs are fingerprinted (shift windows + factorization) and sketched in one on-device pass, skipping the .txt round-trip. Equivalent to lyn2vec + sketch -fp.")
+    p.add_argument("--factorization", default="CFL", help="Factorization for --direct-fp (only CFL is ported). [CFL]")
+    p.add_argument("--rev-comb", default="true", choices=["true", "false"], help="extract_reads rev_com mode for --direct-fp. [true]")
+    p.add_argument("--shift", default="shift", choices=["shift", "no_shift"], help="--direct-fp: fingerprint every cyclic 100-window (shift) or the whole read (no_shift), like the lyn2vec flag. [shift]")
+    add_device_option(p)
+    add_sketch_options(p)
+    p.set_defaults(func=run)
+    return p
+
+
+def run(args) -> int:
+    device = resolve_device(args.device)
+    files = expand_inputs(args.inputs, args.list)
+
+    if args.direct_fp:
+        from fpmash_tpu_torch.models.fingerprint import extract_reads
+
+        sketch = Sketch(sketch_params_from_args(args, fingerprint=True))
+        reads = []
+        with trace("read-fasta", files=len(files)):
+            for f in files:
+                reads.extend(extract_reads(f, rev_com=args.rev_comb == "true"))
+        sketch.init_from_reads_fingerprint(
+            reads, args.factorization, shift=args.shift == "shift", device=device
+        )
+        prefix = args.prefix or files[0]
+        out = prefix if prefix.endswith(".msh") else prefix + ".msh"
+        print(f"Writing to {out}...", file=sys.stderr)
+        sketch.write_msh(out)
+        return 0
+
+    if not args.fingerprint:
+        raise NotImplementedError(
+            "sketching sequence files (classic k-mer MinHash) is not ported yet "
+            "(ROADMAP slice 3); use -fp or --direct-fp"
+        )
+    sketch = Sketch(sketch_params_from_args(args, fingerprint=True))
+    sketch.init_from_fingerprints(files, device=device)
+    if args.id is not None and sketch.references:
+        sketch.references[0].name = args.id
+    if args.comment is not None and sketch.references:
+        sketch.references[0].comment = args.comment
+    sketch._create_index()
+
+    prefix = args.prefix or (args.inputs[0] if args.inputs[0] != "-" else "stdin")
+    out = prefix if prefix.endswith(".msh") else prefix + ".msh"
+    print(f"Writing to {out}...", file=sys.stderr)
+    sketch.write_msh(out)
+    return 0

@@ -1,0 +1,91 @@
+"""Build the CUDA kernels of ``csrc/`` at first use and bind them with ctypes.
+
+``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain C
+interface, for Hopper (``sm_90a``), into ``build/`` at the repository root.
+The library's name carries a digest of the sources and flags, so an edited
+source builds anew and a finished build is reused by later processes.
+Nothing is built or loaded when this module is imported.
+
+Each C entry point returns the ``cudaGetLastError()`` after its launch;
+:func:`check` raises on a nonzero code, because a refused launch never runs
+and a later synchronise would not report it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_p, _i32, _i64, _u64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64, ctypes.c_uint64
+_SIGNATURES = {
+    # flat, n_flat, starts, lengths, n_windows, seed, h1, h2, count, stream
+    "fpmash_fingerprint": [_p, _i64, _p, _p, _i64, _u64, _p, _p, _p, _p],
+    # ref, ref_len, n_ref, ref_stride, qry, qry_len, n_qry, qry_stride,
+    # sketch_size, common, denom, stream
+    "fpmash_walk": [_p, _p, _i64, _i64, _p, _p, _i64, _i64, _i32, _p, _p, _p],
+}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    return os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+
+
+def library_path() -> Path:
+    sources = sorted(CSRC.glob("*.cu"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return BUILD_DIR / f"libfpmash_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile ``csrc/*.cu`` unless this exact build exists; return its path."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
+        )
+    os.replace(tmp, out)  # atomic: concurrent builders never see half a file
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The kernels' shared library, built on first call in this process."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.fpmash_error_string.argtypes = [ctypes.c_int]
+    lib.fpmash_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(code: int, what: str) -> None:
+    if code != 0:
+        msg = library().fpmash_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")

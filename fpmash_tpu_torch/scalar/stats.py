@@ -1,0 +1,56 @@
+"""Mash distance, its p-value, and C++-style number formatting.
+
+Copies of :func:`fpmash_tpu.models.distance.mash_distance` and the parts of
+:mod:`fpmash_tpu.scalar.stats` that ``dist`` needs.  ``binom_sf`` is GSL's
+``gsl_cdf_binomial_Q`` (CommandDistance.cpp:433-450); SciPy computes it
+through the regularized incomplete beta function, agreeing with GSL at full
+double precision even in the extreme tails the goldens exercise (e.g.
+4.48626e-214).
+"""
+
+from __future__ import annotations
+
+import math
+
+
+def mash_distance(jaccard: float, kmer_size: int) -> float:
+    """d = -ln(2j/(1+j))/k, clamped (CommandDistance.cpp:403-414)."""
+    if jaccard == 1.0:
+        return 0.0
+    if jaccard == 0.0:
+        return 1.0
+    d = -math.log(2.0 * jaccard / (1.0 + jaccard)) / kmer_size
+    return min(d, 1.0)
+
+
+def binom_sf(k: int, n: int, p: float) -> float:
+    """P(X > k) for X ~ Binomial(n, p) — i.e. gsl_cdf_binomial_Q(k, p, n)."""
+    if n <= 0 or p <= 0.0:
+        return 0.0
+    if p >= 1.0:
+        return 1.0 if k < n else 0.0
+    if k < 0:
+        return 1.0
+    if k >= n:
+        return 0.0
+    from scipy.stats import binom
+
+    return float(binom.sf(k, n, p))
+
+
+def mash_pvalue(
+    common: int, length_ref: int, length_query: int, kmer_space: float, sketch_size: int
+) -> float:
+    """Binomial p-value for observing ``common`` shared min-hashes by chance
+    (CommandDistance.cpp:433-450 ``pValue``)."""
+    if common == 0:
+        return 1.0
+    px = 1.0 / (1.0 + kmer_space / length_ref)
+    py = 1.0 / (1.0 + kmer_space / length_query)
+    r = px * py / (px + py - px * py)
+    return binom_sf(common - 1, sketch_size, r)
+
+
+def format_g(x: float) -> str:
+    """C++ ``cout << double`` default formatting (6 significant digits)."""
+    return f"{x:g}"

@@ -1,0 +1,94 @@
+"""FASTA / FASTQ / gzip sequence reader (copy of :mod:`fpmash_tpu.utils.fasta`).
+
+The pure-Python streaming parser only; the JAX package's native C++ batch
+reader (``native/``) is asserted equivalent to it there and is not ported
+yet.  Records are ``(name, comment, sequence)`` tuples.
+"""
+
+from __future__ import annotations
+
+import gzip
+import io
+from typing import Iterator, NamedTuple
+
+
+class SeqRecord(NamedTuple):
+    name: str
+    comment: str
+    seq: str
+
+
+def _open_text(path: str):
+    if path == "-":  # stdin, like the reference's gzdopen(fileno(stdin))
+        import sys
+
+        return io.StringIO(sys.stdin.read())
+    if path.endswith(".gz"):
+        return io.TextIOWrapper(gzip.open(path, "rb"))
+    return open(path)
+
+
+def read_sequences(path: str) -> Iterator[SeqRecord]:
+    """Stream records from a FASTA or FASTQ file (optionally .gz).
+
+    FASTA: ``>name comment`` header, multi-line sequence.
+    FASTQ: 4-line records ``@name comment / seq / + / qual``.
+    Format is sniffed from the first non-empty character, like kseq.
+    """
+    with _open_text(path) as fh:
+        first = fh.read(1)
+        while first in ("\n", "\r", " "):
+            first = fh.read(1)
+        if first == "":
+            return
+        if first == ">":
+            yield from _read_fasta(fh)
+        elif first == "@":
+            yield from _read_fastq(fh)
+        else:
+            raise ValueError(f"{path}: not FASTA/FASTQ (starts with {first!r})")
+
+
+def _split_header(line: str) -> tuple[str, str]:
+    # kseq keeps everything after the first whitespace run (including a
+    # trailing \r on CRLF files) as the comment; preserved for byte-parity
+    # of sketch comments.
+    line = line.rstrip("\n")
+    parts = line.split(None, 1)
+    name = parts[0] if parts else ""
+    comment = parts[1] if len(parts) > 1 else ""
+    return name, comment
+
+
+def _read_fasta(fh) -> Iterator[SeqRecord]:
+    # The caller consumed the leading '>'.
+    name, comment = _split_header(fh.readline())
+    chunks: list[str] = []
+    for line in fh:
+        if line.startswith(">"):
+            yield SeqRecord(name, comment, "".join(chunks))
+            name, comment = _split_header(line[1:])
+            chunks = []
+        else:
+            chunks.append(line.strip())
+    yield SeqRecord(name, comment, "".join(chunks))
+
+
+def _read_fastq(fh) -> Iterator[SeqRecord]:
+    # The caller consumed the leading '@'.
+    header = fh.readline()
+    while True:
+        name, comment = _split_header(header)
+        seq = fh.readline().strip()
+        fh.readline()  # '+' line
+        qual = fh.readline()
+        if not qual:
+            if seq:
+                yield SeqRecord(name, comment, seq)
+            return
+        yield SeqRecord(name, comment, seq)
+        header = fh.readline()
+        if not header:
+            return
+        if header.startswith("@"):
+            header = header[1:]

@@ -1,0 +1,135 @@
+"""Port: the fingerprint kernel's wrapper (plain version on the CPU) vs the JAX package.
+
+The same windows, made with numpy from a seed, go through the Pallas kernel
+``fingerprint_hashes_fused`` in interpret mode (both packings, as
+tests/test_fused_pallas.py runs it), through the JAX split XLA route
+(``cfl_lengths_onehot`` + ``murmur3_u64_batch``), and through
+``fpmash_tpu_torch.ops.fused_cuda.fingerprint_hashes`` on CPU tensors.
+Hashes and counts are integers: every comparison is exact.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from fpmash_tpu.ops.fused_pallas import fingerprint_hashes_fused
+from fpmash_tpu.ops.lyndon import cfl_lengths_onehot
+from fpmash_tpu.ops.murmur3 import murmur3_u64_batch
+from fpmash_tpu.scalar.lyndon import cfl
+from fpmash_tpu.scalar.murmur3 import murmur3_x64_128
+from fpmash_tpu_torch.ops import fused_cuda
+from fpmash_tpu_torch.scalar.lyndon import cfl as port_cfl
+
+L = 100
+
+
+def _windows(seed: int, alphabet: bytes, n: int = 56) -> list[bytes]:
+    """Full-width windows plus short, empty and degenerate rows."""
+    rng = np.random.default_rng(seed)
+    lut = np.frombuffer(alphabet, np.uint8)
+    words = [lut[rng.integers(0, len(lut), size=L)].tobytes() for _ in range(n)]
+    words += [lut[rng.integers(0, len(lut), size=int(m))].tobytes()
+              for m in rng.integers(1, L, size=4)]  # reads shorter than 100
+    words += [b"", b"", b"A" * L, b"ACGT" * 25, b"T" * (L - 1) + b"A", b"C"]
+    return words
+
+
+def _rows(words):
+    arr = np.zeros((len(words), L), np.uint8)
+    lens = np.array([len(w) for w in words], np.int32)
+    for i, w in enumerate(words):
+        arr[i, : len(w)] = np.frombuffer(w, np.uint8)
+    return arr, lens
+
+
+def _stream(words):
+    """The port's layout: one flat stream, a start and a length per window.
+    Windows are packed back to back, except that empty ones share a start."""
+    flat = np.frombuffer(b"".join(words), np.uint8).copy()
+    starts = np.cumsum([0] + [len(w) for w in words[:-1]]).astype(np.int64)
+    lens = np.array([len(w) for w in words], np.int32)
+    return torch.from_numpy(flat), torch.from_numpy(starts), torch.from_numpy(lens)
+
+
+def _port(words, seed=42):
+    h1, h2, count = fused_cuda.fingerprint_hashes(*_stream(words), seed)
+    return h1.numpy().view(np.uint64), h2.numpy().view(np.uint64), count.numpy()
+
+
+@pytest.mark.parametrize(
+    "pack,alphabet", [("byte4", b"ACGTNacgRY?"), ("dna16", b"ACGT")]
+)
+def test_fingerprint_matches_pallas_interpret(pack, alphabet):
+    words = _windows(3 if pack == "byte4" else 4, alphabet)
+    arr, lens = _rows(words)
+    jh1, jh2, jfc = fingerprint_hashes_fused(
+        jnp.asarray(arr), jnp.asarray(lens), seed=42, interpret=True, pack=pack
+    )
+    h1, h2, count = _port(words)
+    assert np.array_equal(h1, np.asarray(jh1))
+    assert np.array_equal(h2, np.asarray(jh2))
+    assert np.array_equal(count, np.asarray(jfc))
+
+
+def test_fingerprint_matches_split_xla_route():
+    """vs the JAX package's XLA formulation the kernel is held against."""
+    words = _windows(5, b"ACGTN")
+    arr, lens = _rows(words)
+    fac_len, fac_count = cfl_lengths_onehot(jnp.asarray(arr), jnp.asarray(lens))
+    jh1, jh2 = murmur3_u64_batch(fac_len.astype(jnp.uint64), fac_count, seed=42)
+    h1, h2, count = _port(words)
+    assert np.array_equal(h1, np.asarray(jh1))
+    assert np.array_equal(h2, np.asarray(jh2))
+    assert np.array_equal(count, np.asarray(fac_count))
+
+
+@pytest.mark.parametrize("hash_seed", [42, 7])
+def test_fingerprint_matches_scalar_chain(hash_seed):
+    """vs Duval + MurmurHash3 one window at a time, and the port's CFL copy
+    vs the JAX package's."""
+    words = _windows(6, b"ACGTN", n=24)
+    h1, h2, count = _port(words, hash_seed)
+    for i, w in enumerate(words):
+        text = w.decode("latin-1")
+        assert port_cfl(text) == cfl(text)
+        vec = [len(f) for f in cfl(text)]
+        data = b"".join(int(v).to_bytes(8, "little") for v in vec)
+        assert (int(h1[i]), int(h2[i])) == murmur3_x64_128(data, hash_seed), i
+        assert int(count[i]) == len(vec)
+
+
+def test_overlapping_shift_windows_share_the_stream():
+    """Cyclic windows of one read, as the sketch path ships them."""
+    rng = np.random.default_rng(8)
+    read = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, size=180)].tobytes()
+    doubled = read + read[: L - 1]
+    flat = torch.frombuffer(bytearray(doubled), dtype=torch.uint8)
+    starts = torch.arange(len(read), dtype=torch.int64)
+    lens = torch.full((len(read),), L, dtype=torch.int32)
+    h1, _, count = fused_cuda.fingerprint_hashes(flat, starts, lens)
+    want = _port([doubled[i : i + L] for i in range(len(read))])
+    assert np.array_equal(h1.numpy().view(np.uint64), want[0])
+    assert np.array_equal(count.numpy(), want[2])
+
+
+def test_windows_outside_the_stream_are_flagged():
+    flat = torch.zeros(5, dtype=torch.uint8)
+    h1, h2, count = fused_cuda.fingerprint_hashes(
+        flat,
+        torch.tensor([0, 3, -1, 5, 2], dtype=torch.int64),
+        torch.tensor([5, 3, 1, 0, -2], dtype=torch.int32),
+    )
+    assert count.tolist() == [5, -1, -1, 0, -1]
+    assert h1.tolist()[1:3] == [0, 0] and h2.tolist()[4] == 0
+
+
+def test_wrapper_dispatch_and_checks():
+    flat, starts, lens = _stream([b"ACGT"])
+    before = fused_cuda.LAUNCHES
+    fused_cuda.fingerprint_hashes(flat, starts, lens)
+    assert fused_cuda.LAUNCHES == before  # the plain version is not a launch
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        fused_cuda.fingerprint_hashes(flat.to("meta"), starts.to("meta"), lens.to("meta"))
+    with pytest.raises(ValueError, match="int32"):
+        fused_cuda.fingerprint_hashes(flat, starts, lens.to(torch.int64))

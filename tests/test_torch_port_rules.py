@@ -1,0 +1,111 @@
+"""Port rules: no JAX in the port, an explicit device, and the kernels on the card.
+
+The tests marked ``gpu`` build the CUDA kernels and hold each one against
+its plain PyTorch version; without a usable card they skip with a reason.
+On a machine with one (JAX need not be installed there), run them with
+``python -m pytest tests/test_torch_port_rules.py -m gpu --noconftest``.
+"""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from fpmash_tpu_torch.cli import main as port_main
+from fpmash_tpu_torch.device import resolve_device
+from fpmash_tpu_torch.ops import fused_cuda, walk_cuda
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+
+_LIST_MODULES = """
+import importlib, pkgutil, sys
+before = set(sys.modules)
+import fpmash_tpu_torch
+{imports}
+new = sorted(m for m in set(sys.modules) - before
+             if m.split('.')[0] in ('jax', 'jaxlib', 'fpmash_tpu'))
+print(repr(new))
+"""
+
+
+def _new_jax_modules(imports: str) -> list[str]:
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        filter(None, [str(REPO), os.environ.get("PYTHONPATH")])))
+    out = subprocess.run(
+        [sys.executable, "-c", _LIST_MODULES.format(imports=imports)],
+        env=env, capture_output=True, text=True, timeout=300, check=True,
+    )
+    return ast.literal_eval(out.stdout.strip().splitlines()[-1])
+
+
+def test_cli_import_loads_no_jax():
+    assert _new_jax_modules("import fpmash_tpu_torch.cli") == []
+
+
+def test_no_module_of_the_port_loads_jax():
+    walk = (
+        "for m in pkgutil.walk_packages(fpmash_tpu_torch.__path__, 'fpmash_tpu_torch.'):\n"
+        "    if m.name != 'fpmash_tpu_torch.__main__':\n"
+        "        importlib.import_module(m.name)"
+    )
+    assert _new_jax_modules(walk) == []
+
+
+def test_cuda_device_without_a_card_raises(monkeypatch, golden_dir, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        resolve_device("cuda")
+    txt = str(golden_dir / "cfl" / "DNA3-CFL.txt")
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        port_main(["sketch", "-fp", txt, "-o", str(tmp_path / "x")])  # default is cuda
+    assert not (tmp_path / "x.msh").exists()
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="unsupported"):
+        resolve_device("meta")
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels are built and run only there")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+def test_fingerprint_kernel_matches_plain_on_card(cuda_device):
+    rng = np.random.default_rng(21)
+    flat = np.frombuffer(b"ACGTNacgt", np.uint8)[rng.integers(0, 9, size=5000)]
+    starts = rng.integers(0, 4900, size=3000).astype(np.int64)
+    lengths = rng.integers(0, 101, size=3000).astype(np.int32)
+    starts[:4], lengths[:4] = [0, 4999, -1, 4990], [0, 2, 1, 10]  # edges, 2 outside
+    args = [torch.from_numpy(a).to(cuda_device) for a in (flat, starts, lengths)]
+    before = fused_cuda.LAUNCHES
+    got = fused_cuda.fingerprint_hashes(*args, 42)
+    assert fused_cuda.LAUNCHES == before + 1
+    want = fused_cuda.fingerprint_hashes_plain(*args, 42)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert got[2][:3].tolist() == [0, -1, -1]
+
+
+@pytest.mark.gpu
+def test_walk_kernel_matches_plain_on_card(cuda_device):
+    rng = np.random.default_rng(22)
+    ref = rng.integers(0, 40, size=(33, 70)).astype(np.uint64)
+    qry = rng.integers(0, 40, size=(19, 50)).astype(np.uint64)
+    ref[:5] |= np.uint64(1 << 63)
+    rl = rng.integers(0, 71, size=33).astype(np.int32)
+    ql = rng.integers(0, 51, size=19).astype(np.int32)
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in (ref.view(np.int64), rl, qry.view(np.int64), ql)]
+    for cap in (10, 60, 1000):
+        before = walk_cuda.LAUNCHES
+        got = walk_cuda.pairwise_walk(*args, cap)
+        assert walk_cuda.LAUNCHES == before + 1
+        want = walk_cuda.pairwise_walk_plain(*args, cap)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
