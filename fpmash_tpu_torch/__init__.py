@@ -10,8 +10,9 @@ The package imports ``torch``, ``numpy`` and the standard library, never
 ``jax`` or :mod:`fpmash_tpu` (whose ``__init__`` imports JAX), so it runs
 where JAX is not installed.  Host modules it needs are carried as copies.
 
-Ported so far: the fingerprint main path, ``sketch --direct-fp`` and
-``sketch -fp`` to ``.msh``, then ``dist`` over the unsorted hash lists.
+Ported so far: the fingerprint main path, ``sketch --direct-fp`` (all ten
+lyn2vec factorization families) and ``sketch -fp`` to ``.msh``, then
+``dist`` over the unsorted hash lists, and the ``fingerprint`` verb.
 """
 
 __version__ = "0.1.0"

@@ -1,8 +1,8 @@
 """`fpmash` on PyTorch + CUDA — the CLI of the ported verbs.
 
 Run ``python -m fpmash_tpu_torch <command> ...``.  Ported so far: ``sketch``
-(``-fp`` and ``--direct-fp``) and ``dist``; flags and output bytes match
-``python -m fpmash_tpu``.  Every command takes ``--device`` (default
+(``-fp`` and ``--direct-fp``), ``dist`` and ``fingerprint``; flags and
+output bytes match ``python -m fpmash_tpu``.  Every command takes ``--device`` (default
 ``cuda``).
 """
 
@@ -13,7 +13,7 @@ import sys
 
 
 def build_parser() -> argparse.ArgumentParser:
-    from fpmash_tpu_torch.commands import dist_cmd, sketch_cmd
+    from fpmash_tpu_torch.commands import dist_cmd, lyn2vec_cmd, sketch_cmd
 
     parser = argparse.ArgumentParser(
         prog="fpmash",
@@ -23,6 +23,7 @@ def build_parser() -> argparse.ArgumentParser:
     sub = parser.add_subparsers(dest="command", metavar="<command>")
     sketch_cmd.add_parser(sub)
     dist_cmd.add_parser(sub)
+    lyn2vec_cmd.add_parser(sub)
     return parser
 
 

@@ -1,7 +1,8 @@
 """`sketch` — fingerprint sketches (CommandSketch.cpp:20-123).
 
-The ported modes: ``--direct-fp`` (FASTA -> shift windows -> CFL -> hash)
-and ``-fp`` (fingerprint ``.txt`` -> hash).  Flags, defaults and output
+The ported modes: ``--direct-fp`` (FASTA -> shift windows -> factorization
+of any of the ten lyn2vec families -> hash) and ``-fp`` (fingerprint ``.txt``
+-> hash).  Flags, defaults and output
 bytes are those of ``python -m fpmash_tpu sketch``; ``--device`` replaces
 ``--backend``.
 """
@@ -35,7 +36,7 @@ def add_parser(sub):
     p.add_argument("-C", "--comment", default=None, help="Comment for the first sketch (-fp).")
     p.add_argument("-fp", "--fingerprint", action="store_true", help="Inputs are fingerprint .txt files instead of sequences.")
     p.add_argument("--direct-fp", action="store_true", help="Integrated pipeline: FASTA inputs are fingerprinted (shift windows + factorization) and sketched in one on-device pass, skipping the .txt round-trip. Equivalent to lyn2vec + sketch -fp.")
-    p.add_argument("--factorization", default="CFL", help="Factorization for --direct-fp (only CFL is ported). [CFL]")
+    p.add_argument("--factorization", default="CFL", help="Factorization for --direct-fp: CFL | ICFL | CFL_ICFL-10/20/30 | CFL_COMB | ICFL_COMB | CFL_ICFL_COMB-10/20/30. [CFL]")
     p.add_argument("--rev-comb", default="true", choices=["true", "false"], help="extract_reads rev_com mode for --direct-fp. [true]")
     p.add_argument("--shift", default="shift", choices=["shift", "no_shift"], help="--direct-fp: fingerprint every cyclic 100-window (shift) or the whole read (no_shift), like the lyn2vec flag. [shift]")
     add_device_option(p)

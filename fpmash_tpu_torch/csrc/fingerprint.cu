@@ -30,31 +30,9 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "murmur3.cuh"
+
 namespace {
-
-constexpr uint64_t kC1 = 0x87C37B91114253D5ull;
-constexpr uint64_t kC2 = 0x4CF5AD432745937Full;
-
-__device__ __forceinline__ uint64_t rotl64(uint64_t x, int r) {
-  return (x << r) | (x >> (64 - r));
-}
-
-__device__ __forceinline__ uint64_t fmix64(uint64_t k) {
-  k ^= k >> 33;
-  k *= 0xFF51AFD7ED558CCDull;
-  k ^= k >> 33;
-  k *= 0xC4CEB9FE1A85EC53ull;
-  k ^= k >> 33;
-  return k;
-}
-
-__device__ __forceinline__ uint64_t mix_k1(uint64_t k1) {
-  return rotl64(k1 * kC1, 31) * kC2;
-}
-
-__device__ __forceinline__ uint64_t mix_k2(uint64_t k2) {
-  return rotl64(k2 * kC2, 33) * kC1;
-}
 
 __global__ void fingerprint_kernel(const uint8_t* __restrict__ flat, int64_t n_flat,
                                    const int64_t* __restrict__ starts,
@@ -74,9 +52,7 @@ __global__ void fingerprint_kernel(const uint8_t* __restrict__ flat, int64_t n_f
   }
   const uint8_t* __restrict__ s = flat + start;
 
-  uint64_t h1 = seed, h2 = seed;
-  uint64_t k1 = 0;  // first u64 of a half-filled 16-byte block
-  int32_t count = 0;
+  fpmash::Murmur64 hash(seed);
   int32_t i = 0;
   while (i < n) {
     // scan the longest prefix of s[i:] that is a power of a Lyndon word
@@ -90,34 +66,14 @@ __global__ void fingerprint_kernel(const uint8_t* __restrict__ flat, int64_t n_f
     const int32_t p = j - k;
     // emit its factors, each of length p
     while (i <= k) {
-      if (count & 1) {
-        h1 ^= mix_k1(k1);
-        h1 = rotl64(h1, 27) + h2;
-        h1 = h1 * 5 + 0x52DCE729ull;
-        h2 ^= mix_k2(static_cast<uint64_t>(p));
-        h2 = rotl64(h2, 31) + h1;
-        h2 = h2 * 5 + 0x38495AB5ull;
-      } else {
-        k1 = static_cast<uint64_t>(p);
-      }
-      ++count;
+      hash.add(static_cast<uint64_t>(p));
       i += p;
     }
   }
-  if (count & 1) h1 ^= mix_k1(k1);
-
-  const uint64_t byte_len = 8ull * static_cast<uint64_t>(count);
-  h1 ^= byte_len;
-  h2 ^= byte_len;
-  h1 += h2;
-  h2 += h1;
-  h1 = fmix64(h1);
-  h2 = fmix64(h2);
-  h1 += h2;
-  h2 += h1;
-  h1_out[b] = h1;
-  h2_out[b] = h2;
-  count_out[b] = count;
+  hash.finish();
+  h1_out[b] = hash.h1;
+  h2_out[b] = hash.h2;
+  count_out[b] = hash.count;
 }
 
 }  // namespace

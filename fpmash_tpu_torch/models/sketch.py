@@ -9,8 +9,9 @@ references whose hash arrays are computed on the chosen device:
   in file order, unsorted, with no bottom-k — all lines of all files are
   hashed in one batch (``ops/murmur3.py``).
 * ``sketch --direct-fp`` (:meth:`Sketch.init_from_reads_fingerprint`): reads
-  -> shift windows -> CFL factor lengths -> hash, in one kernel
-  (``ops/fused_cuda.py``), without writing the fingerprint text.
+  -> shift windows -> factor lengths of any of the ten families -> hash,
+  without writing the fingerprint text: CFL in one kernel
+  (``ops/fused_cuda.py``), the other families in two (``ops/icfl_cuda.py``).
 
 Persistence is the byte-compatible ``.msh`` codec of ``utils/msh.py``.
 The sketch is the state this system carries between commands, as weights
@@ -164,69 +165,54 @@ class Sketch:
         *,
         device,
     ) -> None:
-        """Reads -> shift windows -> CFL factorization -> hash -> references,
+        """Reads -> shift windows -> factorization -> hash -> references,
         without writing fingerprint text (``sketch --direct-fp``).
 
         Produces the same sketch as the lyn2vec pipeline to a ``.txt``
-        followed by :meth:`init_from_fingerprints`.  ``reads`` yields
-        ``(id, SEQ)``.  Each read is shipped to the device once, upper-cased
-        and followed by its first 99 characters, and every window is named
-        by its start and length in that stream: a read of ``n >= 100``
-        characters gives ``n`` cyclic windows of 100, a shorter read (or any
-        read with ``shift=False``) one window of itself.
+        followed by :meth:`init_from_fingerprints`, for any of the ten
+        factorization families.  ``reads`` yields ``(id, SEQ)``.  Each read
+        is shipped to the device once, upper-cased and followed by its first
+        99 characters, and every window is named by its start and length in
+        that stream: a read of ``n >= 100`` characters gives ``n`` cyclic
+        windows of 100, a shorter read (or any read with ``shift=False``)
+        one window of itself.  CFL windows go through kernel K1
+        (``ops/fused_cuda.py``); the other families through ``factor_words``
+        then ``hash_words`` (``ops/icfl_cuda.py``), with the scalar model for
+        the rows ``models/fingerprint.py`` routes there.
         """
-        from fpmash_tpu_torch.models.fingerprint import SHIFT_WINDOW
+        from fpmash_tpu_torch.models.fingerprint import window_stream
+        from fpmash_tpu_torch.ops.factorize import plan
         from fpmash_tpu_torch.ops.fused_cuda import fingerprint_hashes
 
-        if factorization != "CFL":
-            raise NotImplementedError(
-                f"factorization {factorization!r} is not ported yet: only CFL runs "
-                "here; the other families come with ROADMAP slice 2 (ICFL kernels)"
-            )
+        plan(factorization)  # an unknown family fails before any work
         p = self.params
-        W = SHIFT_WINDOW
-        chunks: list[bytes] = []
-        starts: list[np.ndarray] = []
-        lengths: list[np.ndarray] = []
-        groups: list[tuple[str, int]] = []
-        off = 0
-        budget = LIMIT_READ_FINGERPRINT
-        for rid, seq in reads:
-            if budget <= 0:
-                break
-            seq = seq.upper()
-            n = len(seq)
-            if shift and n >= W:
-                data = (seq + seq[: W - 1]).encode("ascii", "replace")
-                take = min(n, budget)
-                starts.append(np.arange(off, off + take, dtype=np.int64))
-                lengths.append(np.full(take, W, np.int32))
-            else:
-                data = seq.encode("ascii", "replace")
-                take = 1
-                starts.append(np.array([off], np.int64))
-                lengths.append(np.array([n], np.int32))
-            chunks.append(data)
-            off += len(data)
-            budget -= take
-            groups.append((rid, take))
+        reads = list(reads)
+        flat, starts, lengths, counts = window_stream([s.upper() for _, s in reads], shift)
+        # the global line cap cuts the windows of the last reads
+        before = np.cumsum(counts) - counts
+        takes = np.clip(LIMIT_READ_FINGERPRINT - before, 0, counts)
+        n_windows = int(takes.sum())
+        starts, lengths = starts[:n_windows], lengths[:n_windows]
 
-        n_windows = sum(take for _, take in groups)
-        with trace("factorize+hash", windows=n_windows):
-            flat = torch.from_numpy(np.frombuffer(b"".join(chunks), np.uint8).copy())
-            h1, _, count = fingerprint_hashes(
-                flat.to(device),
-                torch.from_numpy(np.concatenate(starts or [np.zeros(0, np.int64)])).to(device),
-                torch.from_numpy(np.concatenate(lengths or [np.zeros(0, np.int32)])).to(device),
-                p.seed,
-            )
-            h1 = h1.cpu().numpy().view(np.uint64)
-            count = count.cpu().numpy()
+        if factorization == "CFL":
+            with trace("factorize+hash", windows=n_windows):
+                h1, _, count = fingerprint_hashes(
+                    torch.from_numpy(flat).to(device),
+                    torch.from_numpy(starts).to(device),
+                    torch.from_numpy(lengths).to(device),
+                    p.seed,
+                )
+                h1 = h1.cpu().numpy().view(np.uint64)
+                count = count.cpu().numpy()
+        else:
+            h1, count = _family_hashes(flat, starts, lengths, factorization, p.seed, device)
         if not p.use64:
             h1 = h1 & np.uint64(0xFFFFFFFF)
 
         pos = 0
-        for rid, take in groups:
+        for (rid, _), take in zip(reads, takes.tolist()):
+            if take == 0:
+                continue
             sizes = count[pos : pos + take]
             length = int(sizes.sum()) + (int(sizes[0]) if bug_compat_length else 0)
             self.references.append(
@@ -384,3 +370,24 @@ def _hash_u64_vectors(vecs, seed: int, use64: bool, device) -> np.ndarray:
     )
     h1 = h1.cpu().numpy().view(np.uint64)
     return h1 if use64 else h1 & np.uint64(0xFFFFFFFF)
+
+
+def _family_hashes(flat, starts, lengths, factorization: str, seed: int, device):
+    """``(h1 u64[B], count int32[B])`` of the windows for a family other
+    than CFL: kernels ``factor_words`` then ``hash_words`` on ``device``, the
+    scalar model for the rows ``models/fingerprint.py`` routes there."""
+    from fpmash_tpu_torch.models.fingerprint import family_words
+    from fpmash_tpu_torch.ops.icfl_cuda import hash_words
+    from fpmash_tpu_torch.scalar.murmur3 import hash_u64_vector
+
+    idx, words, dev_lengths, scalar = family_words(flat, starts, lengths, factorization, device)
+    h1 = np.zeros(len(lengths), np.uint64)
+    count = np.zeros(len(lengths), np.int32)
+    with trace("hash-words", windows=len(idx)):
+        h1_d, _, count_d = hash_words(words, dev_lengths, seed)
+        h1[idx] = h1_d.cpu().numpy().view(np.uint64)
+        count[idx] = count_d.cpu().numpy()
+    for b, vec in scalar.items():
+        h1[b] = hash_u64_vector(vec, seed, use64=True)
+        count[b] = len(vec)
+    return h1, count

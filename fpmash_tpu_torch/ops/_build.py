@@ -1,10 +1,11 @@
 """Build the CUDA kernels of ``csrc/`` at first use and bind them with ctypes.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain C
-interface, for Hopper (``sm_90a``), into ``build/`` at the repository root.
-The library's name carries a digest of the sources and flags, so an edited
-source builds anew and a finished build is reused by later processes.
-Nothing is built or loaded when this module is imported.
+``nvcc`` compiles every ``csrc/*.cu`` (one process per source, all started
+together; headers ``csrc/*.cuh``) for Hopper (``sm_90a``) and links them into
+one shared library with a plain C interface, in ``build/`` at the repository
+root.  The library's name carries a digest of the sources and flags, so an
+edited source builds anew and a finished build is reused by later
+processes.  Nothing is built or loaded when this module is imported.
 
 Each C entry point returns the ``cudaGetLastError()`` after its launch;
 :func:`check` raises on a nonzero code, because a refused launch never runs
@@ -26,7 +27,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _p, _i32, _i64, _u64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64, ctypes.c_uint64
@@ -36,6 +37,11 @@ _SIGNATURES = {
     # ref, ref_len, n_ref, ref_stride, qry, qry_len, n_qry, qry_stride,
     # sketch_size, common, denom, stream
     "fpmash_walk": [_p, _p, _i64, _i64, _p, _p, _i64, _i64, _i32, _p, _p, _p],
+    # flat, n_flat, starts, lengths, n_windows, base, threshold, comb, max_len,
+    # words, n_words, ok, stream
+    "fpmash_factor_words": [_p, _i64, _p, _p, _i64, _i32, _i32, _i32, _i32, _p, _i32, _p, _p],
+    # words, n_words, lengths, n_rows, seed, h1, h2, count, stream
+    "fpmash_hash_words": [_p, _i32, _p, _i64, _u64, _p, _p, _p, _p],
 }
 
 
@@ -47,7 +53,7 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    sources = sorted(CSRC.glob("*.cu"))
+    sources = sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")])
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources:
         digest.update(src.name.encode())
@@ -61,13 +67,25 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
+    tag = f"{out.stem}.{os.getpid()}"
+    objs, procs = [], []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.PIPE, text=True)))
+    results = [(cmd, proc.communicate()[1], proc.returncode) for cmd, proc in procs]
+    tmp = BUILD_DIR / f"{tag}.so.tmp"
+    if all(code == 0 for _, _, code in results):
+        cmd = [_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        link = subprocess.run(cmd, capture_output=True, text=True)
+        results.append((cmd, link.stderr, link.returncode))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    for cmd, err, code in results:
+        if code != 0:
+            raise RuntimeError(f"nvcc failed (exit {code}): {' '.join(cmd)}\n{err}")
     os.replace(tmp, out)  # atomic: concurrent builders never see half a file
     return out
 

@@ -20,13 +20,13 @@ from __future__ import annotations
 
 import torch
 
-from fpmash_tpu_torch.ops.murmur3 import murmur3_u64_batch
-
 #: kernel launches in this process (the plain version does not count)
 LAUNCHES = 0
 
 
-def _check(flat, starts, lengths):
+def check_stream(flat, starts, lengths):
+    """Raise unless ``(flat, starts, lengths)`` is a window stream: contiguous
+    ``uint8[N]``, ``int64[B]`` and ``int32[B]`` on one device."""
     if flat.dim() != 1 or flat.dtype != torch.uint8 or not flat.is_contiguous():
         raise ValueError(f"flat must be contiguous uint8 [N], got {flat.dtype} {tuple(flat.shape)}")
     if starts.dim() != 1 or starts.dtype != torch.int64 or not starts.is_contiguous():
@@ -47,7 +47,7 @@ def fingerprint_hashes(flat: torch.Tensor, starts: torch.Tensor, lengths: torch.
     """``(h1 int64[B], h2 int64[B], count int32[B])`` for windows
     ``flat[starts[b] : starts[b] + lengths[b]]`` of the ``uint8`` stream."""
     global LAUNCHES
-    _check(flat, starts, lengths)
+    check_stream(flat, starts, lengths)
     dev = flat.device
     if dev.type == "cpu":
         return fingerprint_hashes_plain(flat, starts, lengths, seed)
@@ -74,54 +74,13 @@ def fingerprint_hashes(flat: torch.Tensor, starts: torch.Tensor, lengths: torch.
 
 def fingerprint_hashes_plain(flat: torch.Tensor, starts: torch.Tensor, lengths: torch.Tensor,
                              seed: int = 42):
-    """Plain PyTorch version of the kernel, on any device.
+    """Plain PyTorch version of the kernel, on any device: the Duval
+    factor-start words of ``ops/icfl_cuda.factor_words_plain`` (all windows
+    stepping in lockstep), hashed by ``hash_words_plain``."""
+    from fpmash_tpu_torch.ops.icfl_cuda import factor_words_plain, hash_words_plain
 
-    Runs Duval's automaton for all windows in lockstep as ``[B]`` vectors
-    (one state step per iteration: extend the scan, emit a factor, or start
-    the next scan), scatters each emitted factor length into a ``[B, Lmax]``
-    matrix, then hashes the matrix with :func:`murmur3_u64_batch`.
-    """
-    _check(flat, starts, lengths)
-    dev = flat.device
-    B, N = starts.numel(), flat.numel()
-    n = lengths.to(torch.int64)
-    ok = (starts >= 0) & (n >= 0) & (starts <= N - n)
-    n = torch.where(ok, n, 0)
-    st = torch.where(ok, starts, 0)
-    width = int(n.max()) if B else 0
-
-    # column `width` is a dump slot for rows that emit nothing this step
-    lens = torch.zeros((B, width + 1), dtype=torch.int64, device=dev)
-    cnt = torch.zeros(B, dtype=torch.int64, device=dev)
-    i = torch.zeros(B, dtype=torch.int64, device=dev)
-    j = torch.ones(B, dtype=torch.int64, device=dev)
-    k = torch.zeros(B, dtype=torch.int64, device=dev)
-    emitting = torch.zeros(B, dtype=torch.bool, device=dev)
-    chars = flat.to(torch.int16)
-    last = max(N - 1, 0)
-    while width:
-        done = i >= n
-        if bool(done.all()):
-            break
-        s_k = chars[(st + k).clamp(0, last)]
-        s_j = chars[(st + torch.minimum(j, n - 1)).clamp(0, last)]
-        scanning = ~emitting & ~done
-        extend = scanning & (j < n) & (s_k <= s_j)
-        emit_now = i <= k
-        fire = emitting & ~done & emit_now
-        reset = emitting & ~done & ~emit_now
-        p = j - k
-        lens.scatter_(1, torch.where(fire, cnt, width)[:, None], p[:, None])
-        cnt = cnt + fire
-        k = torch.where(extend, torch.where(s_k < s_j, i, k + 1), k)
-        j = torch.where(extend, j + 1, j)
-        i = torch.where(fire, i + p, i)
-        j = torch.where(reset, i + 1, j)
-        k = torch.where(reset, i, k)
-        emitting = (emitting | (scanning & ~extend)) & ~reset
-
-    h1, h2 = murmur3_u64_batch(lens[:, :width], cnt, seed)
-    h1 = torch.where(ok, h1, 0)
-    h2 = torch.where(ok, h2, 0)
-    count = torch.where(ok, cnt, -1).to(torch.int32)
-    return h1, h2, count
+    check_stream(flat, starts, lengths)
+    words, inside = factor_words_plain(flat, starts, lengths, "CFL")
+    h1, h2, count = hash_words_plain(words, torch.where(inside, lengths, 0), seed)
+    return (torch.where(inside, h1, 0), torch.where(inside, h2, 0),
+            torch.where(inside, count, -1))

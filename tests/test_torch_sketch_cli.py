@@ -5,6 +5,8 @@
 kernels) and through ``fpmash_tpu``'s CLI on the same inputs: the port must
 reproduce the golden ``DNA3-sketch.msh`` hash for hash, write ``.msh``
 bytes identical to the JAX package's, and print identical ``dist`` lines.
+The factorization families other than CFL are held against the scalar
+fingerprint ``.txt`` route as well as against the JAX package.
 """
 
 import dataclasses
@@ -176,10 +178,53 @@ def test_line_cap_matches_jax(golden_dir, monkeypatch):
 
 def test_unported_routes_say_so(golden_dir, tmp_path):
     fasta = str(golden_dir / "cfl" / "DNA3.fasta")
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        port_main(["sketch", "--direct-fp", fasta, "--factorization", "ICFL",
+    with pytest.raises(ValueError, match=r"unknown factorization 'LYNDON'.*'CFL_COMB'.*'ICFL'"):
+        port_main(["sketch", "--direct-fp", fasta, "--factorization", "LYNDON",
                    "-o", str(tmp_path / "x"), "--device", "cpu"])
+    assert not (tmp_path / "x.msh").exists()
     with pytest.raises(NotImplementedError, match="slice 3"):
         port_main(["sketch", fasta, "-o", str(tmp_path / "x"), "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="slice 3"):
         port_main(["dist", fasta, fasta, "--device", "cpu"])
+
+
+@pytest.mark.parametrize("family", ["ICFL", "ICFL_COMB", "CFL_COMB", "CFL_ICFL_COMB-10"])
+def test_direct_fp_families_match_txt_route_and_jax(tmp_path, family):
+    """``--direct-fp --factorization F`` against three things: the port's
+    ``sketch -fp`` of the scalar fingerprint ``.txt``, the JAX package's
+    ``init_from_reads_fingerprint`` (through ``sketch_from_arrays``), and the
+    ``.msh`` bytes of both CLIs.  Reads: shift-window reads, one of exactly
+    100, reads shorter than 100 (one window each), N-bearing bases."""
+    from fpmash_tpu.models.fingerprint import fingerprint_reads as jax_fingerprint_reads
+
+    rng = np.random.default_rng(17)
+    lut = np.frombuffer(b"ACGTACGTACGTN", np.uint8)
+    seqs = [lut[rng.integers(0, len(lut), size=m)].tobytes().decode()
+            for m in (131, 100, 57, 1, 99, 12)]
+    reads = [(f"R{k}", seq) for k, seq in enumerate(seqs)]
+    params = port_sketch_mod.SketchParams().for_fingerprint()
+
+    port = port_sketch_mod.Sketch(params)
+    port.init_from_reads_fingerprint(reads, family, device=CPU)
+    fp_lines, _ = jax_fingerprint_reads(reads, family, backend="scalar")
+    (tmp_path / "fp.txt").write_text("".join(fp_lines))
+    via_txt = port_sketch_mod.Sketch(params)
+    via_txt.init_from_fingerprints([str(tmp_path / "fp.txt")], device=CPU)
+    jsk = jax_sketch_mod.Sketch(jax_sketch_mod.SketchParams().for_fingerprint())
+    jsk.init_from_reads_fingerprint(reads, family)
+    via_jax = port_sketch_mod.sketch_from_arrays(
+        dataclasses.asdict(jsk.params),
+        [dict(name=r.name, comment=r.comment, length=r.length, hashes=r.hashes)
+         for r in jsk.references],
+    )
+    assert len(port) == len(via_txt) == len(via_jax) == len(reads)
+    for other in (via_txt, via_jax):
+        for a, b in zip(port.references, other.references, strict=True):
+            assert (a.name, a.comment, a.length) == (b.name, b.comment, b.length)
+            assert np.array_equal(a.hashes, b.hashes)
+
+    _write_fasta(tmp_path / "r.fa", seqs)
+    base = ["sketch", "--direct-fp", str(tmp_path / "r.fa"), "--factorization", family]
+    assert port_main([*base, "-o", str(tmp_path / "p"), "--device", "cpu"]) == 0
+    assert jax_main([*base, "-o", str(tmp_path / "j")]) == 0
+    assert (tmp_path / "p.msh").read_bytes() == (tmp_path / "j.msh").read_bytes()
