@@ -5,16 +5,21 @@
 Run from the root of a checkout on a machine with a CUDA card.  It builds
 the CUDA kernels from ``fpmash_tpu_torch/csrc`` into ``build/``, holds each
 kernel against its plain PyTorch version on the card, reproduces the DNA3
-golden sketch and the lyn2vec goldens of all ten factorization families
-through the CLI, and drives two main paths at the size users run (two
-FASTAs of 256 reads x 2 000 bases: ``sketch --direct-fp`` on each, CFL and
-then ICFL_COMB, then ``dist -fp`` over the 65 536 pairs).  Every phase
-passes or raises; nothing is caught.
+golden sketch, the lyn2vec goldens of all ten factorization families and
+the reference's classic goldens (``reads.msh``, ``genomes.dist``) through
+the CLI, and drives three main paths at the size users run: two FASTAs of
+256 reads x 2 000 bases (``sketch --direct-fp`` on each, CFL and then
+ICFL_COMB, then ``dist -fp`` over the 65 536 pairs), and the classic k-mer
+MinHash workflow at E. coli scale (three 5 Mbase genomes and a 50 Mbase read
+set: ``sketch``, ``sketch -r -m 2``, ``sketch -s 10000``, ``sketch -k 16``,
+``dist``).  Every phase passes or raises; nothing is caught.
 
 The last three lines of standard output are the kernels' JSON record
-(launch counts from the main paths, and for the Duval base of
-``factor_words`` from the families' CLI runs; exact-match errors; kernel and
-plain times), the card's ``name, power.limit`` as ``nvidia-smi`` gives them, and
+(launch counts from the main paths, for the Duval base of
+``factor_words`` from the families' CLI runs and for the unmasked k-mer
+kernel K7 from the classic goldens, whose read set takes the pool route;
+exact-match errors; kernel and plain times), the card's ``name,
+power.limit`` as ``nvidia-smi`` gives them, and
 ``{"ok": true, "device": {...}}``.  Without a usable card, or outside a
 checkout, it exits nonzero and prints no result.  It never imports JAX.
 """
@@ -213,20 +218,23 @@ MAIN_PATH_KERNELS = {"CFL": ("fingerprint", "walk"),
 
 def _reset_counts():
     from fpmash_tpu_torch.models import fingerprint
-    from fpmash_tpu_torch.ops import fused_cuda, icfl_cuda, walk_cuda
+    from fpmash_tpu_torch.ops import fused_cuda, icfl_cuda, kmers_cuda, walk_cuda
 
     fused_cuda.LAUNCHES = 0
     walk_cuda.LAUNCHES = 0
     icfl_cuda.LAUNCHES.update(dict.fromkeys(icfl_cuda.LAUNCHES, 0))
+    kmers_cuda.LAUNCHES.update(dict.fromkeys(kmers_cuda.LAUNCHES, 0))
     fingerprint.SCALAR_ROWS.update(dict.fromkeys(fingerprint.SCALAR_ROWS, 0))
 
 
 def _launches() -> dict:
-    from fpmash_tpu_torch.ops import fused_cuda, icfl_cuda, walk_cuda
+    from fpmash_tpu_torch.ops import fused_cuda, icfl_cuda, kmers_cuda, walk_cuda
 
     out = {"fingerprint": fused_cuda.LAUNCHES, "walk": walk_cuda.LAUNCHES}
     for key, n in icfl_cuda.LAUNCHES.items():
         out["hash_words" if key == "hash_words" else f"factor_words:{key}"] = n
+    for key, n in kmers_cuda.LAUNCHES.items():
+        out[f"kmer:{key}"] = n
     return out
 
 
@@ -602,6 +610,373 @@ def phase_icfl_main_shapes(dev, work: Path, seqs_a):
     return out["k3"], out["k4"], out["k14"]
 
 
+# ---------------------------------------------------------------------- #
+# the classic k-mer MinHash path: K5, K6, K7, K8
+# ---------------------------------------------------------------------- #
+
+#: the classic main path: three genomes of GENOME_LEN bases (E. coli scale)
+#: and reads of SHORT_READ bases at COVERAGE x of the first, 1 % errors
+GENOME_LEN, SHORT_READ, COVERAGE = 5_000_000, 150, 10
+#: the kernels the classic main path must launch (keys of _launches())
+CLASSIC_PATH_KERNELS = ("kmer:topk8", "kmer:masked", "kmer:planes_k16", "walk")
+
+
+def _mixed_dna(rng, n: int):
+    """ACGT bytes with lowercase stretches, and N, IUPAC codes and NUL sprinkled in."""
+    import numpy as np
+
+    seq = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, size=n)].copy()
+    for start in rng.integers(0, n, size=n // 400):
+        seq[start : start + int(rng.integers(5, 60))] += 32
+    bad = rng.random(n) < 0.01
+    seq[bad] = np.frombuffer(b"NRYKM\x00n", np.uint8)[rng.integers(0, 7, size=int(bad.sum()))]
+    return seq
+
+
+def _kmer_compare(seq, k: int, cuts, **flags) -> dict:
+    """The k-mer kernels at ``k`` against their plain versions on ``seq``:
+    the planes always, the masked and top-8 kernels at each ``(t_hi,
+    length)`` of ``cuts`` when 16 < k.  Returns the errors by ``LAUNCHES``
+    key; raises on any difference."""
+    import torch
+
+    from fpmash_tpu_torch.ops import kmers_cuda as kc
+
+    kw = dict(k=k, seed=42, **flags)
+    runs = [("planes_k16" if k <= 16 else "planes_k32", kc.kmer_hashes_planes,
+             kc.kmer_hashes_planes_plain, ())]
+    if k > 16:
+        for cut in cuts:
+            runs.append(("masked", kc.kmer_hashes_masked_planes,
+                         kc.kmer_hashes_masked_planes_plain, cut))
+            runs.append(("topk8", kc.kmer_hashes_topk8_planes,
+                         kc.kmer_hashes_topk8_planes_plain, cut))
+    errs = {}
+    for key, kernel, plain, cut in runs:
+        got = kernel(seq, *cut, **kw)
+        want = plain(seq, *cut, **kw)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"{key} (k={k}, {flags}, cut {cut}) differs from its plain version")
+        errs[key] = max(errs.get(key, 0.0), _max_abs_err(zip(got, want)))
+    return errs
+
+
+def phase_kmer_kernels(dev, rng):
+    """K5-K8 against their plain versions on 1 Mi mixed positions at k = 16,
+    21 and 32, canonical or not, case folded or kept; the masked and top-8
+    kernels at the s = 1000 threshold, at a dense one that overflows groups
+    and at the saturated one, with cut lengths.  64 of K7's hashes against
+    the scalar MurmurHash3 of the canonical k bytes.  Returns the errors."""
+    import numpy as np
+    import torch
+
+    from fpmash_tpu_torch.ops import kmers_cuda
+    from fpmash_tpu_torch.ops.kmers import chunk_threshold, complement_table
+    from fpmash_tpu_torch.scalar.murmur3 import hash_bytes
+
+    n = 1 << 20
+    host = _mixed_dna(rng, n)
+    seq = torch.from_numpy(host).to(dev)
+    errs = {}
+    for k, flags in ((16, {}), (16, dict(noncanonical=True, preserve_case=True)), (21, {}),
+                     (21, dict(preserve_case=True)), (32, {}), (32, dict(noncanonical=True))):
+        cuts = ((chunk_threshold(n, k, 1000)[0], n), (0x08000000, n - 777), (0xFFFFFFFF, n - 1))
+        for key, e in _kmer_compare(seq, k, cuts, **flags).items():
+            errs[key] = max(errs.get(key, 0.0), e)
+
+    lo, hi, valid = kmers_cuda.kmer_hashes_planes(seq, k=21)
+    h = kmers_cuda.join_planes(lo, hi).cpu().numpy().view(np.uint64)
+    text = np.where((host > 96) & (host < 123), host - 32, host)
+    ctab = complement_table()
+    probe = rng.choice(np.flatnonzero(valid.cpu().numpy()), 64, replace=False)
+    for p in probe:
+        kmer = bytes(text[p : p + 21])
+        rc = bytes(ctab[np.frombuffer(kmer, np.uint8)][::-1])
+        if int(h[p]) != hash_bytes(min(kmer, rc), seed=42):
+            raise AssertionError(f"K7 position {p} differs from the scalar MurmurHash3")
+    print(f"K5-K8: {n} mixed positions at k = 16, 21, 32 equal to the plain versions (masked "
+          f"and top-8 at 3 thresholds each); {len(probe)} K7 hashes equal the scalar oracle")
+    return errs
+
+
+def phase_classic_goldens(work: Path):
+    """The reference's classic goldens on cuda through the CLI: ``sketch -r
+    -I reads reads1.fastq reads2.fastq`` equals ``reads.msh`` (hashes,
+    counts, length 502 359, comment), and ``dist`` of the three genome
+    sketches against it prints ``genomes.dist``.  The read set has under
+    2 Mi bases, so it takes the pool route (K7).  Returns this path's
+    launches."""
+    import io
+
+    import numpy as np
+
+    from fpmash_tpu_torch.cli import main
+    from fpmash_tpu_torch.models.sketch import Sketch
+    from fpmash_tpu_torch.utils.msh import read_msh
+
+    new = ROOT / "tests" / "golden" / "new_data"
+    ref = ROOT / "tests" / "golden" / "mash_ref"
+    out = work / "classic_golden"
+    out.mkdir(parents=True, exist_ok=True)
+    genomes = Sketch()
+    for i in (1, 2, 3):
+        genomes.load_msh(str(ref / f"genome{i}.fna.msh"))
+        genomes.references[-1].name = f"genome{i}.fna"
+    genomes.write_msh(str(out / "genomes.msh"))
+
+    _reset_counts()
+    rc = main(["sketch", "-r", "-I", "reads", str(new / "reads1.fastq"), str(new / "reads2.fastq"),
+               "-o", str(out / "reads"), "--device", "cuda"])
+    assert rc == 0, rc
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        rc = main(["dist", str(out / "genomes.msh"), str(out / "reads.msh"), "--device", "cuda"])
+    assert rc == 0, rc
+    launches = _launches()
+    if launches["kmer:planes_k32"] < 1 or launches["walk"] < 1:
+        raise AssertionError(f"the goldens did not launch K7 and K2: {launches}")
+
+    mine = read_msh(str(out / "reads.msh")).references[0]
+    gold = read_msh(str(new / "reads.msh")).references[0]
+    # the golden's comment carries a stray \r from the reference's CRLF input
+    if (mine.name, mine.length, mine.comment) != (gold.name, gold.length,
+                                                  gold.comment.replace("\r", "")):
+        raise AssertionError("sketch -r: name, length or comment differ from reads.msh")
+    if not (np.array_equal(mine.hashes64, gold.hashes64)
+            and np.array_equal(mine.counts32, gold.counts32)):
+        raise AssertionError("sketch -r: hashes or counts differ from reads.msh")
+    if printed.getvalue() != (ref / "genomes.dist").read_text():
+        raise AssertionError("dist genomes.msh reads.msh differs from genomes.dist")
+    print(f"golden: sketch -r on cuda equals reads.msh (length {mine.length}, "
+          f"{len(mine.hashes64)} hashes and counts); dist prints genomes.dist; launches {launches}")
+    return launches
+
+
+def _write_genome(path: Path, codes, name: str) -> None:
+    """One FASTA record of 2-bit ``codes`` in lines of 80."""
+    import numpy as np
+
+    text = np.frombuffer(b"ACGT", np.uint8)[codes]
+    full = len(text) // 80 * 80
+    rows = np.concatenate([text[:full].reshape(-1, 80),
+                           np.full((full // 80, 1), ord("\n"), np.uint8)], axis=1)
+    with open(path, "wb") as fh:
+        fh.write(f">{name} synthetic genome\n".encode())
+        fh.write(rows.tobytes())
+        if full < len(text):
+            fh.write(text[full:].tobytes() + b"\n")
+
+
+def _write_reads(path: Path, rng, genome, n_reads: int, read_len: int, error: float) -> None:
+    """FASTQ reads of ``genome`` (2-bit codes) at uniform positions, half of
+    them reverse-complemented, each base substituted with rate ``error``."""
+    import numpy as np
+
+    starts = rng.integers(0, len(genome) - read_len + 1, size=n_reads)
+    reads = genome[starts[:, None] + np.arange(read_len)]
+    err = rng.random(reads.shape, dtype=np.float32) < error
+    reads[err] = (reads[err] + rng.integers(1, 4, size=int(err.sum()), dtype=np.uint8)) % 4
+    flip = rng.random(n_reads) < 0.5
+    reads[flip] = 3 - reads[flip, ::-1]
+    text = np.frombuffer(b"ACGT", np.uint8)[reads]
+    qual = b"I" * read_len
+    with open(path, "wb") as fh:
+        fh.write(b"".join(b"@r%d sim\n%s\n+\n%s\n" % (i, row.tobytes(), qual)
+                          for i, row in enumerate(text)))
+
+
+def _pool_oracle(seqs, p, dev, plain: bool = False):
+    """``bottom_k_host`` over every k-mer hash of ``seqs``: the byte stream
+    the sketch routes build, hashed on the card in one launch of the
+    unmasked kernel (K7/K8) or by its plain version, then downloaded.  It
+    shares nothing with K5, K6, the thresholds or the chunk merge."""
+    import numpy as np
+    import torch
+
+    from fpmash_tpu_torch.models.sketch import _blob
+    from fpmash_tpu_torch.ops import kmers_cuda
+    from fpmash_tpu_torch.ops.bottomk import bottom_k_host
+
+    stream = torch.from_numpy(_blob(seqs, p.kmer_size).copy()).to(dev)
+    hashes = kmers_cuda.kmer_hashes_planes_plain if plain else kmers_cuda.kmer_hashes_planes
+    lo, hi, valid = hashes(stream, k=p.kmer_size, seed=p.seed)
+    pool = kmers_cuda.join_planes(lo, hi)[valid]
+    if not p.use64:
+        pool &= 0xFFFFFFFF
+    return bottom_k_host(pool.cpu().numpy().view(np.uint64), p.sketch_size, p.min_cov)
+
+
+def phase_classic_main_path(dev, rng, work: Path):
+    """The classic workflow at E. coli scale through the CLI on cuda: three
+    genomes of 5 000 000 bases (g2 is g1 with 5 % substitutions, g3
+    independent) and 150-base reads at 10x of g1 with 1 % errors.
+    ``sketch g1 g2 g3`` (K5), ``sketch -r -m 2 reads.fq`` (K5, collect-all),
+    ``sketch -s 10000 g1`` (K6: below K5's gate), ``sketch -k 16 g1`` (K8,
+    pool path) and ``dist genomes.msh reads.msh`` (K2), with the counts
+    set to 0 just before and read just after.  Each sketch must equal
+    :func:`_pool_oracle` of its input, and each ``dist`` line the literal
+    walk.  Returns the launches and the walls."""
+    import io
+
+    import numpy as np
+    import torch
+
+    from fpmash_tpu_torch.cli import main
+    from fpmash_tpu_torch.models.distance import compare_sketches
+    from fpmash_tpu_torch.models.sketch import Sketch, SketchParams
+    from fpmash_tpu_torch.utils import trace as trace_mod
+    from fpmash_tpu_torch.utils.fasta import read_sequences
+    from fpmash_tpu_torch.utils.msh import read_msh
+
+    out = work / "classic"
+    out.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    g1 = rng.integers(0, 4, size=GENOME_LEN, dtype=np.uint8)
+    g2 = g1.copy()
+    sub = rng.random(GENOME_LEN) < 0.05
+    g2[sub] = (g2[sub] + rng.integers(1, 4, size=int(sub.sum()), dtype=np.uint8)) % 4
+    g3 = rng.integers(0, 4, size=GENOME_LEN, dtype=np.uint8)
+    for i, g in enumerate((g1, g2, g3), 1):
+        _write_genome(out / f"g{i}.fna", g, f"g{i}")
+    n_reads = COVERAGE * GENOME_LEN // SHORT_READ
+    _write_reads(out / "reads.fq", rng, g1, n_reads, SHORT_READ, 0.01)
+    print(f"classic main path: 3 genomes of {GENOME_LEN} bases and {n_reads} reads of "
+          f"{SHORT_READ} bases written in {time.perf_counter() - t0:.1f} s")
+
+    genomes = [str(out / f"g{i}.fna") for i in (1, 2, 3)]
+    commands = {
+        "sketch g1 g2 g3": ["sketch", *genomes, "-o", str(out / "genomes")],
+        "sketch -r -m 2 reads.fq": ["sketch", "-r", "-m", "2", str(out / "reads.fq"),
+                                    "-o", str(out / "reads")],
+        "sketch -s 10000 g1": ["sketch", "-s", "10000", genomes[0], "-o", str(out / "g1_s10000")],
+        "sketch -k 16 g1": ["sketch", "-k", "16", genomes[0], "-o", str(out / "g1_k16")],
+        "dist genomes.msh reads.msh": ["dist", str(out / "genomes.msh"), str(out / "reads.msh")],
+    }
+    walls, spans, printed = {}, {}, {}
+    trace_mod._ENABLED = True  # the stage spans go to stderr, captured below
+    _reset_counts()
+    for name, argv in commands.items():
+        err, std = io.StringIO(), io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(err), contextlib.redirect_stdout(std):
+            rc = main([*argv, "--device", "cuda"])
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        assert rc == 0, (name, rc, err.getvalue())
+        spans[name] = [line[len("[fpmash] "):] for line in err.getvalue().splitlines()
+                       if line.startswith("[fpmash] ")]
+        printed[name] = std.getvalue()
+    launches = _launches()
+    trace_mod._ENABLED = False
+    missing = [key for key in CLASSIC_PATH_KERNELS if launches[key] < 1]
+    if missing:
+        raise AssertionError(f"the classic main path did not launch {missing}: {launches}")
+
+    t0 = time.perf_counter()
+
+    def records(name):
+        return [r.seq for r in read_sequences(str(out / name))]
+
+    def check(path, want, what, counts=None):
+        ref = read_msh(str(out / path)).references
+        got = np.concatenate([h for h in (ref[0].hashes64, ref[0].hashes32) if h is not None])
+        if not np.array_equal(got, want[0]):
+            raise AssertionError(f"{what}: the sketch differs from bottom_k_host of the K7 pool")
+        if counts and not np.array_equal(ref[0].counts32, want[1]):
+            raise AssertionError(f"{what}: the counts differ from bottom_k_host of the K7 pool")
+
+    for i in (1, 2, 3):
+        ref = read_msh(str(out / "genomes.msh")).references[i - 1]
+        if not np.array_equal(ref.hashes64, _pool_oracle(records(f"g{i}.fna"), SketchParams(),
+                                                         dev)[0]):
+            raise AssertionError(f"sketch g{i}.fna differs from bottom_k_host of the K7 pool")
+    check("reads.msh", _pool_oracle(records("reads.fq"), SketchParams(min_cov=2), dev),
+          "sketch -r -m 2", counts=True)
+    check("g1_s10000.msh", _pool_oracle(records("g1.fna"), SketchParams(sketch_size=10_000), dev),
+          "sketch -s 10000")
+    check("g1_k16.msh", _pool_oracle(records("g1.fna"), SketchParams(kmer_size=16), dev,
+                                     plain=True), "sketch -k 16")
+
+    lines = printed["dist genomes.msh reads.msh"].splitlines()
+    ref, qry = Sketch(), Sketch()
+    ref.load_msh(str(out / "genomes.msh"))
+    qry.load_msh(str(out / "reads.msh"))
+    p = ref.params
+    if len(lines) != 3:
+        raise AssertionError(f"dist printed {len(lines)} lines, not 3")
+    dists = []
+    for r, line in zip(ref.references, lines):
+        rname, qname, d, pv, frac = line.split("\t")
+        q = qry.references[0]
+        res = compare_sketches(r.hashes, q.hashes, r.length, q.length, p.sketch_size,
+                               p.kmer_size, p.kmer_space)
+        if (rname, qname, frac) != (r.name, q.name, f"{res.numer}/{res.denom}"):
+            raise AssertionError(f"dist line differs from the literal walk: {line}")
+        if not (0.0 <= float(d) <= 1.0 and 0.0 <= float(pv) <= 1.0):
+            raise AssertionError(f"dist line out of range: {line}")
+        dists.append(float(d))
+    if not dists[0] < dists[1] < dists[2]:
+        raise AssertionError(f"reads of g1 should be nearest g1, then g2, then g3: {dists}")
+    print(f"classic main path: every sketch equals bottom_k_host of the K7 (K8 plain for "
+          f"-k 16) pool and every dist line the literal walk ({time.perf_counter() - t0:.1f} s)")
+
+    for name in commands:
+        print(f"classic main path: {name}: {walls[name]:.3f} s wall; spans: "
+              + "; ".join(spans[name]))
+    for line in lines:
+        print(f"classic main path: dist: {line}")
+    bases = 3 * GENOME_LEN + n_reads * SHORT_READ
+    e2e = bases / sum(walls[n] for n in ("sketch g1 g2 g3", "sketch -r -m 2 reads.fq",
+                                         "dist genomes.msh reads.msh"))
+    print(f"classic main path: e2e (sketch g1 g2 g3, sketch -r -m 2, dist) {e2e:.1f} bases/s; "
+          f"launches {launches}")
+    return launches, walls
+
+
+def phase_kmer_main_shapes(dev, work: Path):
+    """K5-K8 against their plain versions at the main path's shape, one
+    chunk of 16 Mi positions: g1.fna as the direct route ships it, with the
+    thresholds of s = 1000 (K5) and s = 10 000 (K6); K7 at k = 21 and K8 at
+    k = 16 over the same bytes.  Returns each kernel's error and times."""
+    import torch
+
+    from fpmash_tpu_torch.models import sketch as port_sketch
+    from fpmash_tpu_torch.ops import kmers_cuda as kc
+    from fpmash_tpu_torch.ops.kmers import chunk_threshold
+    from fpmash_tpu_torch.utils.fasta import read_sequences
+
+    seqs = [r.seq for r in read_sequences(str(work / "classic" / "g1.fna"))]
+    seq, length = port_sketch._direct_chunk(port_sketch._blob(seqs, 21), 0, dev)
+    N = seq.numel()
+    cases = {
+        "k7": (kc.kmer_hashes_planes, kc.kmer_hashes_planes_plain, (), 21),
+        "k8": (kc.kmer_hashes_planes, kc.kmer_hashes_planes_plain, (), 16),
+        "k6": (kc.kmer_hashes_masked_planes, kc.kmer_hashes_masked_planes_plain,
+               (chunk_threshold(N, 21, 10_000)[0], length), 21),
+        "k5": (kc.kmer_hashes_topk8_planes, kc.kmer_hashes_topk8_planes_plain,
+               (chunk_threshold(N, 21, 1000)[0], length), 21),
+    }
+    out = {}
+    for name, (kernel, plain, cut, k) in cases.items():
+        got = kernel(seq, *cut, k=k)
+        want = plain(seq, *cut, k=k)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"{name} differs from its plain version on g1's chunk")
+        out[name] = {
+            "max_abs_err": _max_abs_err(zip(got, want)),
+            "ms": _time_ms(lambda f=kernel, c=cut, k=k: f(seq, *c, k=k), 20),
+            "plain_ms": _time_ms(lambda f=plain, c=cut, k=k: f(seq, *c, k=k), 3),
+        }
+        if name == "k5" and bool(got[2]):
+            raise AssertionError("K5 overflowed a group on g1's chunk")
+    print(f"main-path shapes: one chunk of {N} positions ({length} bases of g1.fna), all equal "
+          "to the plain versions; "
+          + "; ".join(f"{name.upper()} kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms"
+                      for name, t in out.items()))
+    return out["k5"], out["k6"], out["k7"], out["k8"]
+
+
 def main() -> int:
     import torch
 
@@ -647,6 +1022,13 @@ def main() -> int:
     k4["max_abs_err"] = max(k4["max_abs_err"], errs["hash_words"])
     k14["max_abs_err"] = max(k14["max_abs_err"], errs["cfl"])
 
+    kmer_errs = phase_kmer_kernels(dev, rng)
+    golden_launches = phase_classic_goldens(work)
+    classic_launches, _ = phase_classic_main_path(dev, rng, work)
+    k5, k6, k7, k8 = phase_kmer_main_shapes(dev, work)
+    for t, key in ((k5, "topk8"), (k6, "masked"), (k7, "planes_k32"), (k8, "planes_k16")):
+        t["max_abs_err"] = max(t["max_abs_err"], kmer_errs[key])
+
     src = "fpmash_tpu_torch/csrc/"
     kernels = [
         {"name": "fingerprint", "route": "cuda", "source": src + "fingerprint.cu",
@@ -664,6 +1046,18 @@ def main() -> int:
          "replaces": "fpmash_tpu/ops/lyndon_pallas.py:30",
          "launches": family_launches["factor_words:cfl"]
          + family_launches["factor_words:cfl_icfl"], **k14},
+        {"name": "kmer_topk8", "route": "cuda", "source": src + "kmer_hash.cu",
+         "replaces": "fpmash_tpu/ops/kmers_pallas.py:762",
+         "launches": classic_launches["kmer:topk8"], **k5},
+        {"name": "kmer_masked", "route": "cuda", "source": src + "kmer_hash.cu",
+         "replaces": "fpmash_tpu/ops/kmers_pallas.py:544",
+         "launches": classic_launches["kmer:masked"], **k6},
+        {"name": "kmer_hashes_k32", "route": "cuda", "source": src + "kmer_hash.cu",
+         "replaces": "fpmash_tpu/ops/kmers_pallas.py:510",
+         "launches": golden_launches["kmer:planes_k32"], **k7},
+        {"name": "kmer_hashes_k16", "route": "cuda", "source": src + "kmer_hash.cu",
+         "replaces": "fpmash_tpu/ops/kmers_pallas.py:411",
+         "launches": classic_launches["kmer:planes_k16"], **k8},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,7 +1,8 @@
 """`fpmash` on PyTorch + CUDA — the CLI of the ported verbs.
 
 Run ``python -m fpmash_tpu_torch <command> ...``.  Ported so far: ``sketch``
-(``-fp`` and ``--direct-fp``), ``dist`` and ``fingerprint``; flags and
+(classic k-mer MinHash of FASTA/FASTQ, ``-fp`` and ``--direct-fp``; not
+``-W``), ``dist`` and ``fingerprint``; flags and
 output bytes match ``python -m fpmash_tpu``.  Every command takes ``--device`` (default
 ``cuda``).
 """

@@ -2,7 +2,9 @@
 
 Output (plain): ``ref  query  distance  p-value  shared/denom`` per passing
 pair, queries outer / references inner; ``-t`` emits a query-rows x
-ref-columns distance table.  With ``-fp``: ``.msh`` inputs load as sketches,
+ref-columns distance table.  Inputs are ``.msh`` sketches or FASTA/FASTQ
+files, which are sketched first (queries with the reference's
+parameters).  With ``-fp``: ``.msh`` inputs load as sketches,
 ``.txt`` inputs via the fingerprint parser — the reference sniffs only the
 *reference* argument's extension (containsMSH/containsTXT,
 CommandDistance.cpp:453-475), reproduced here.  Flags, defaults and output
@@ -56,13 +58,13 @@ def load_ref_and_queries(args, device):
         # extension sniffing quirk: driven by the REFERENCE argument only
         if args.fingerprint and _contains(paths, ".msh" if ref_is_msh else ".txt"):
             if ref_is_msh:
-                sk.init_from_files(paths)
+                sk.init_from_files(paths, individual=args.individual, device=device)
             else:
                 sk.init_from_fingerprints(paths, device=device)
         elif args.fingerprint:
             sk.init_from_fingerprints(paths, device=device)
         else:
-            sk.init_from_files(paths)
+            sk.init_from_files(paths, individual=args.individual, device=device)
         return sk
 
     ref = load([args.reference])

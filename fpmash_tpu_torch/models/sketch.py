@@ -1,7 +1,7 @@
-"""Sketch engine: the MinHash container and its fingerprint construction paths.
+"""Sketch engine: the MinHash container and its construction paths.
 
-Port of the fingerprint half of :mod:`fpmash_tpu.models.sketch`
-(``mash/src/mash/Sketch.{h,cpp}``).  A sketch is a host-side list of
+Port of :mod:`fpmash_tpu.models.sketch` (``mash/src/mash/Sketch.{h,cpp}``)
+without windowed sketches.  A sketch is a host-side list of
 references whose hash arrays are computed on the chosen device:
 
 * ``sketch -fp`` (:meth:`Sketch.init_from_fingerprints`, Sketch.cpp:56-151):
@@ -12,6 +12,17 @@ references whose hash arrays are computed on the chosen device:
   -> shift windows -> factor lengths of any of the ten families -> hash,
   without writing the fingerprint text: CFL in one kernel
   (``ops/fused_cuda.py``), the other families in two (``ops/icfl_cuda.py``).
+* classic k-mer MinHash (:meth:`Sketch.init_from_files`,
+  :meth:`Sketch.init_from_reads`; sketchFile / sketchSequence,
+  Sketch.cpp:1299-1526): the bottom-s distinct canonical k-mer hashes of
+  each file (or record, ``-i``; or of all reads, ``-r``), with counts
+  (``-M``, reads mode).  Inputs of at least ``_DIRECT_CHUNK / 8`` bases go
+  the direct route: chunks of ``_DIRECT_CHUNK`` bases, each sketched on the
+  device (``ops/kmers.classic_sketch_device``: hash kernel K5 or K6 with the
+  threshold inside), merged on the host.  Smaller inputs, ``k <= 16``,
+  other alphabets, ``-b`` and ``-c`` go the pool path: every k-mer hash
+  (K7/K8, ``ops/kmers.kmer_hashes``), then one bottom-k over the pool.
+  ``--device cpu`` takes the same routes with the kernels' plain versions.
 
 Persistence is the byte-compatible ``.msh`` codec of ``utils/msh.py``.
 The sketch is the state this system carries between commands, as weights
@@ -30,6 +41,16 @@ from fpmash_tpu_torch.utils.trace import trace
 
 #: global fingerprint line cap across all files (Sketch.cpp:37,82)
 LIMIT_READ_FINGERPRINT = 1_000_000
+
+#: bases per chunk of the direct classic route; the route's gate and the
+#: K5/K6 thresholds are sized on it (tests shrink it to exercise the merge)
+_DIRECT_CHUNK = 1 << 24
+
+#: positions hashed per kernel launch on the pool path (bounds its memory)
+_POOL_CHUNK = 1 << 22
+
+#: reads hashed between two coverage estimates of ``-c`` (Sketch.cpp:1410-1414)
+_TARGET_COV_READS = 256
 
 
 @dataclass
@@ -81,6 +102,8 @@ class Reference:
     comment: str = ""
     length: int = 0
     hashes: np.ndarray = field(default_factory=lambda: np.zeros(0, np.uint64))
+    counts: np.ndarray | None = None
+    counts_sorted: bool = False
 
 
 class Sketch:
@@ -226,21 +249,114 @@ class Sketch:
             pos += take
         self._create_index()
 
-    def init_from_files(self, files: list[str]) -> None:
-        """Load ``.msh`` inputs (Sketch::initFromFiles for sketch files).
+    # ------------------------------------------------------------------ #
+    # classic sequence path
+    # ------------------------------------------------------------------ #
 
-        Sketching sequence files (the classic k-mer MinHash path) is not
-        ported yet.
-        """
-        for path in files:
-            if not path.endswith(".msw" if self.params.windowed else ".msh"):
-                raise NotImplementedError(
-                    f"{path}: sketching sequence files (classic k-mer MinHash) is not "
-                    "ported yet (ROADMAP slice 3); give .msh sketches, or "
-                    "fingerprints with -fp"
+    def init_from_sequences(
+        self, records, name: str = "", comment: str = "", merge: bool = False, *, device
+    ) -> None:
+        """Sketch sequence records ``(name, comment, seq)`` (classic k-mer
+        MinHash).  ``merge=True``: all records feed one reference
+        (concatenated and reads mode); otherwise one reference per record
+        (``-i``, sketchFileBySequence).  Records shorter than ``k`` are
+        skipped."""
+        p = self.params
+        if p.windowed:
+            raise NotImplementedError(
+                "windowed sketches (-W) are not ported yet (ROADMAP Queue 1 item 15, slice 5)"
+            )
+        if not merge:
+            for rname, rcomment, seq in records:
+                if len(seq) < p.kmer_size:
+                    continue
+                values, counts = _sketch_pools([seq], p, device)
+                self.references.append(
+                    Reference(
+                        name=name or rname,
+                        comment=comment or rcomment,
+                        length=len(seq),
+                        hashes=values,
+                        counts=counts if p.counts else None,
+                        counts_sorted=p.counts,
+                    )
                 )
-            self.load_msh(path)
+            self._create_index()
+            return
+
+        records = [r for r in records if len(r[2]) >= p.kmer_size]
+        pools = [seq for _, _, seq in records]
+        first = records[0] if records else None
+        first_name, first_comment = (first[0], first[1]) if first else ("", "")
+        count = len(pools)
+        total_len = sum(map(len, pools))
+        if p.reads and p.target_cov > 0:
+            values, counts, count = _sketch_to_coverage(pools, p, device)
+        else:
+            values, counts = _sketch_pools(pools, p, device)
+        if p.reads:
+            # reads mode stores the cardinality estimate as the length
+            # (sketchFile, Sketch.cpp:1425-1436)
+            from fpmash_tpu_torch.ops.bottomk import estimate_set_size
+
+            bits = 64 if p.use64 else 32
+            total_len = int(estimate_set_size(values, p.sketch_size, bits))
+        # the first record's "name comment"; several records get the
+        # "[N seqs] ... [...]" wrapper (Sketch.cpp:1438-1446)
+        rcomment = comment
+        if not rcomment:
+            rcomment = (first_name + " " + first_comment) if first_comment else first_name
+            if count > 1:
+                rcomment = f"[{count} seqs] {rcomment} [...]"
+        self.references.append(
+            Reference(
+                name=name or first_name,
+                comment=rcomment,
+                length=total_len,
+                hashes=values,
+                counts=counts if p.counts else None,
+                counts_sorted=p.counts,
+            )
+        )
         self._create_index()
+
+    def init_from_files(self, files: list[str], individual: bool = False, *, device) -> None:
+        """Sketch FASTA/FASTQ files, and load ``.msh`` ones (Sketch::initFromFiles).
+
+        A sequence file gives one reference named after its path, with the
+        first record's comment (sketchFile, Sketch.cpp:1299-1488), or with
+        ``individual`` one reference per record.  A ``.msh`` loads with the
+        load-time truncation rule.
+        """
+        from fpmash_tpu_torch.utils.fasta import read_sequences
+
+        for path in files:
+            if path.endswith(".msw" if self.params.windowed else ".msh"):
+                self.load_msh(path)
+                continue
+            with trace("read-sequences", file=path):
+                records = list(read_sequences(path))
+            if individual:
+                self.init_from_sequences(records, device=device)
+            else:
+                self.init_from_sequences(records, name=path, merge=True, device=device)
+        self._create_index()
+
+    def init_from_reads(
+        self, files: list[str], name: str = "", comment: str = "", *, device
+    ) -> None:
+        """Reads mode: all records of all files form one reference
+        (Sketch::initFromReads, Sketch.cpp:203-247)."""
+        from fpmash_tpu_torch.utils.fasta import read_sequences
+
+        records = []
+        with trace("read-sequences", files=len(files)):
+            for path in files:
+                records.extend(read_sequences(path))
+        self.init_from_sequences(
+            records, name=name or (files[0] if files else ""), comment=comment, merge=True,
+            device=device,
+        )
 
     # ------------------------------------------------------------------ #
     # persistence
@@ -271,8 +387,12 @@ class Sketch:
             hashes = np.asarray(hashes if hashes is not None else [], np.uint64)
             if truncate and len(hashes) > cap:
                 hashes = hashes[:cap]
+            counts = None
+            if r.counts32 is not None:
+                counts = np.asarray(r.counts32, np.uint32)[: len(hashes)]
             self.references.append(
-                Reference(name=r.name, comment=r.comment, length=r.length, hashes=hashes)
+                Reference(name=r.name, comment=r.comment, length=r.length, hashes=hashes,
+                          counts=counts, counts_sorted=r.counts32_sorted)
             )
         self._create_index()
 
@@ -292,11 +412,15 @@ class Sketch:
             hash_seed=p.seed,
         )
         for r in self.references:
-            mr = MshReference(name=r.name, comment=r.comment, length=int(r.length))
+            with_counts = r.counts is not None and p.counts
+            mr = MshReference(name=r.name, comment=r.comment, length=int(r.length),
+                              counts32_sorted=bool(r.counts_sorted and with_counts))
             if p.use64:
                 mr.hashes64 = np.asarray(r.hashes, np.uint64)
             else:
                 mr.hashes32 = np.asarray(r.hashes, np.uint64).astype(np.uint32)
+            if with_counts:
+                mr.counts32 = np.asarray(r.counts, np.uint32)
             m.references.append(mr)
         with trace("write-msh", references=len(m.references)):
             write_msh(path, m)
@@ -337,16 +461,20 @@ def sketch_from_arrays(params: Mapping, refs: Iterable[Mapping]) -> Sketch:
     ``params`` maps :class:`SketchParams` field names to values (for
     example ``dataclasses.asdict`` of the JAX package's ``SketchParams``);
     each of ``refs`` maps ``name``, ``comment``, ``length`` and ``hashes``
-    (u64 values) of one reference.
+    (u64 values) of one reference, and optionally ``counts`` (u32 values or
+    None) and ``counts_sorted``.
     """
     sk = Sketch(SketchParams(**params))
     for r in refs:
+        counts = r.get("counts")
         sk.references.append(
             Reference(
                 name=r["name"],
                 comment=r["comment"],
                 length=int(r["length"]),
                 hashes=np.asarray(r["hashes"], np.uint64),
+                counts=None if counts is None else np.asarray(counts, np.uint32),
+                counts_sorted=bool(r.get("counts_sorted", False)),
             )
         )
     sk._create_index()
@@ -391,3 +519,276 @@ def _family_hashes(flat, starts, lengths, factorization: str, seed: int, device)
         h1[b] = hash_u64_vector(vec, seed, use64=True)
         count[b] = len(vec)
     return h1, count
+
+
+# ---------------------------------------------------------------------- #
+# classic routes
+# ---------------------------------------------------------------------- #
+
+
+def _blob(seqs, k: int) -> np.ndarray:
+    """All sequences as one ``uint8`` stream, separated by ``k - 1`` NUL
+    bytes (outside every alphabet), so no valid window spans two records."""
+    sep = b"\x00" * (k - 1)
+    joined = sep.join(s.encode("ascii", "replace") if isinstance(s, str) else bytes(s)
+                      for s in seqs)
+    return np.frombuffer(joined, np.uint8)
+
+
+def _to_host(values: torch.Tensor, counts: torch.Tensor, n: int):
+    return (values[:n].cpu().numpy().view(np.uint64),
+            counts[:n].cpu().numpy().astype(np.uint32))
+
+
+def _sketch_pools(seqs: list[str], p: SketchParams, device):
+    """``(values u64, counts u32)`` of one reference: the direct route
+    where it applies (:func:`_classic_sketch_direct`), else the pool path."""
+    direct = _classic_sketch_direct(seqs, p, device)
+    if direct is not None:
+        return direct
+    with trace("kmer-hash", bases=sum(map(len, seqs))):
+        hashes = _kmer_hash_pool(seqs, p, device)
+    with trace("bottom-k", pool=hashes.numel()):
+        return _bottom_k(hashes, p, device)
+
+
+def _sketch_to_coverage(pools: list[str], p: SketchParams, device):
+    """``-c``: hash reads in batches, re-estimate the kept sketch's mean
+    multiplicity after each, and stop once it reaches ``target_cov``
+    (sketchFile, Sketch.cpp:1410-1414).  Returns ``(values, counts, reads
+    used)``."""
+    from fpmash_tpu_torch.ops.bottomk import estimate_multiplicity
+
+    hashes = torch.zeros(0, dtype=torch.int64, device=device)
+    values, counts = np.zeros(0, np.uint64), np.zeros(0, np.uint32)
+    used = 0
+    while used < len(pools):
+        batch = pools[used : used + _TARGET_COV_READS]
+        used += len(batch)
+        hashes = torch.cat([hashes, _kmer_hash_pool(batch, p, device)])
+        values, counts = _bottom_k(hashes, p, device)
+        if len(values) >= p.sketch_size and estimate_multiplicity(counts) >= p.target_cov:
+            break
+    return values, counts, used
+
+
+def _direct_chunk(blob: np.ndarray, pos: int, device):
+    """The direct route's chunk at ``pos``: ``_DIRECT_CHUNK`` bytes on the
+    device (zero-padded at the end of the stream) and its valid length.
+    Windows starting in the last ``k - 1`` bytes of a chunk that is not the
+    last lie past ``length - k`` and belong to the next chunk."""
+    end = min(pos + _DIRECT_CHUNK, len(blob))
+    buf = np.zeros(_DIRECT_CHUNK, np.uint8)
+    buf[: end - pos] = blob[pos:end]
+    length = end - pos if end == len(blob) else _DIRECT_CHUNK
+    return torch.from_numpy(buf).to(device), length
+
+
+def _merge_counts(vals: list[np.ndarray], counts: list[np.ndarray]):
+    """Distinct values of the chunks' results, ascending, with their counts summed."""
+    v = np.concatenate(vals) if vals else np.zeros(0, np.uint64)
+    c = np.concatenate(counts).astype(np.uint64) if counts else np.zeros(0, np.uint64)
+    distinct, inverse = np.unique(v, return_inverse=True)
+    total = np.zeros(len(distinct), np.uint64)
+    np.add.at(total, inverse, c)
+    return distinct, total
+
+
+def _classic_sketch_direct(seqs: list[str], p: SketchParams, device):
+    """The direct classic route: the stream in chunks of ``_DIRECT_CHUNK``
+    bases (overlapping by ``k - 1``), each sketched on the device by
+    :func:`~fpmash_tpu_torch.ops.kmers.classic_sketch_device`, so only
+    ``s``-sized results leave it; the chunks' bottom-s merge on the host.
+
+    The merge is exact: a value of the global bottom-s has fewer than ``s``
+    smaller distinct values in any chunk where it occurs, so it is in that
+    chunk's bottom-s with its full count there; values unite and counts
+    add.  A chunk whose threshold collected too few values retries at boost
+    2; if that also fails, the chunk is hashed in full
+    (:func:`_chunk_pool_bottom_k`).  ``min_cov > 1`` takes
+    :func:`_direct_reads_sketch`.
+
+    Returns ``(values, counts)``, or None where the route does not apply:
+    an alphabet other than ACGT, ``k`` outside (16, 32], fewer than
+    ``max(4096, _DIRECT_CHUNK / 8)`` bases (below that the chunk-sized
+    threshold cannot promise ``s`` candidates within the boost ladder), or
+    ``-b``.
+    """
+    from fpmash_tpu_torch.ops.kmers import classic_sketch_device
+
+    k = p.kmer_size
+    if not seqs or set(p.alphabet) != set("ACGT") or not 16 < k <= 32:
+        return None
+    if p.bloom_bytes > 0 and p.reads:
+        return None  # the Bloom admission is order-dependent: the pool path keeps the order
+    blob = _blob(seqs, k)
+    n = len(blob)
+    if n < max(4096, _DIRECT_CHUNK >> 3):
+        return None
+    step = _DIRECT_CHUNK - (k - 1)
+    # a tail shorter than k holds no window
+    starts = [pos for pos in range(0, n, step) if min(pos + _DIRECT_CHUNK, n) - pos >= k]
+    if p.min_cov > 1:
+        return _direct_reads_sketch(blob, starts, p, device)
+    need_counts = bool(p.counts or p.target_cov > 0)
+
+    vals, counts = [], []
+    with trace("classic-direct", bases=n, chunks=len(starts)):
+        for pos in starts:
+            buf, length = _direct_chunk(blob, pos, device)
+            for boost in (1, 2):
+                v, c, nv, ok = classic_sketch_device(
+                    buf, length, k=k, s=p.sketch_size, noncanonical=p.noncanonical,
+                    preserve_case=p.preserve_case, seed=p.seed, boost=boost,
+                    need_counts=need_counts,
+                )
+                if ok:
+                    break
+            v, c = _to_host(v, c, nv) if ok else _chunk_pool_bottom_k(buf, length, p, need_counts)
+            vals.append(v)
+            counts.append(c)
+    values, total = _merge_counts(vals, counts)
+    if not need_counts:
+        total = np.ones_like(total)  # the chunks' 1-filled counts stay 1
+    return values[: p.sketch_size], total[: p.sketch_size].astype(np.uint32)
+
+
+def _direct_reads_sketch(blob: np.ndarray, starts: list[int], p: SketchParams, device):
+    """The direct route for ``min_cov > 1`` (reads mode ``-m``).
+
+    The reference admits a k-mer once it has been seen ``min_cov`` times
+    (MinHashHeap.cpp:78-95).  Here every chunk returns all its distinct
+    values under the threshold with exact counts (the collect-all contract;
+    the threshold is the same in every chunk, since it is sized on the
+    chunk), counts add across chunks, and ``min_cov`` filters after the
+    merge.  The first ``s`` survivors are the sketch when there are ``s``
+    of them (every value not collected lies above the threshold) or the
+    threshold was saturated.  Otherwise, or when a chunk's ``out_slots``
+    overflow, the whole pass runs again at boost 4, then 16; after that
+    None sends the input to the pool path.  Each pass uploads the chunks
+    again, one at a time.
+    """
+    from fpmash_tpu_torch.ops.kmers import chunk_threshold, classic_sketch_device
+
+    k, s = p.kmer_size, p.sketch_size
+    for boost in (1, 4, 16):
+        sat = chunk_threshold(_DIRECT_CHUNK, k, s, boost)[1]
+        vals, counts = [], []
+        with trace("classic-direct-reads", boost=boost, chunks=len(starts)):
+            for pos in starts:
+                buf, length = _direct_chunk(blob, pos, device)
+                v, c, nv, ok = classic_sketch_device(
+                    buf, length, k=k, s=s, noncanonical=p.noncanonical,
+                    preserve_case=p.preserve_case, seed=p.seed, boost=boost,
+                    out_slots=16 * s * boost,
+                )
+                if not ok:
+                    break  # a chunk's slots overflowed: the next boost
+                v, c = _to_host(v, c, nv)
+                vals.append(v)
+                counts.append(c)
+            else:
+                values, total = _merge_counts(vals, counts)
+                keep = total >= p.min_cov
+                values, total = values[keep], total[keep]
+                if len(values) >= s or sat:
+                    return values[:s], total[:s].astype(np.uint32)
+    return None
+
+
+def _chunk_pool_bottom_k(buf: torch.Tensor, length: int, p: SketchParams, need_counts: bool):
+    """One direct-route chunk whose boost ladder under-collected: every
+    window hashed (K7), then an exact bottom-s of the chunk."""
+    from fpmash_tpu_torch.ops.bottomk import bottom_k_distinct
+    from fpmash_tpu_torch.ops.kmers import kmer_hashes
+
+    h, valid = kmer_hashes(
+        buf, length, alphabet=p.alphabet, k=p.kmer_size, noncanonical=p.noncanonical,
+        preserve_case=p.preserve_case, seed=p.seed,
+    )
+    values, counts, n = bottom_k_distinct(h, valid, s=p.sketch_size)
+    values, counts = _to_host(values, counts, n)
+    return values, counts if need_counts else np.ones_like(counts)
+
+
+def _kmer_hash_pool(seqs: list[str], p: SketchParams, device) -> torch.Tensor:
+    """Every valid k-mer hash of every sequence, in stream order, as one
+    ``int64`` tensor on ``device`` (low 32 bits unless ``use64``).
+
+    The sequences form one stream (:func:`_blob`), hashed in launches of
+    ``_POOL_CHUNK`` positions that overlap by ``k - 1`` bytes.
+    """
+    from fpmash_tpu_torch.ops.kmers import kmer_hashes
+
+    k = p.kmer_size
+    blob = torch.from_numpy(_blob(seqs, k).copy()).to(device)
+    n = blob.numel()
+    parts = [torch.zeros(0, dtype=torch.int64, device=device)]
+    for pos in range(0, n, _POOL_CHUNK - (k - 1)):
+        end = min(pos + _POOL_CHUNK, n)
+        h, valid = kmer_hashes(
+            blob[pos:end], end - pos, alphabet=p.alphabet, k=k, noncanonical=p.noncanonical,
+            preserve_case=p.preserve_case, seed=p.seed,
+        )
+        parts.append(h[valid])
+        if end == n:
+            break
+    out = torch.cat(parts)
+    return out if p.use64 else out & 0xFFFFFFFF
+
+
+def _kmer_hash_pool_scalar(seqs: list[str], p: SketchParams) -> np.ndarray:
+    """The scalar model of :func:`_kmer_hash_pool` (a test oracle): the
+    reference's per-k-mer loop with ``hash_bytes``."""
+    from fpmash_tpu_torch.ops.kmers import complement_table
+    from fpmash_tpu_torch.scalar.murmur3 import hash_bytes
+
+    ctab = complement_table()
+    alpha = set(p.alphabet.encode())
+    k = p.kmer_size
+    out = []
+    for seq in seqs:
+        s = seq if p.preserve_case else seq.upper()
+        b = s.encode("ascii", "replace")
+        rc = bytes(ctab[c] for c in b)[::-1]
+        n = len(b)
+        for i in range(n - k + 1):
+            kmer = b[i : i + k]
+            if any(c not in alpha for c in kmer):
+                continue
+            if not p.noncanonical:
+                rck = rc[n - i - k : n - i]
+                if rck < kmer:
+                    kmer = rck
+            out.append(hash_bytes(kmer, seed=p.seed, use64=True))
+    res = np.array(out, np.uint64) if out else np.zeros(0, np.uint64)
+    return res if p.use64 else res & np.uint64(0xFFFFFFFF)
+
+
+def _bottom_k(hashes: torch.Tensor, p: SketchParams, device):
+    """Bottom-s distinct values and counts of a pool, as host arrays.
+
+    ``-b``: the Bloom admission over the pool in stream order
+    (MinHashHeap.cpp:78-95).  Pools of more than 2^17 hashes, with
+    ``16 s <= 2^16``, try the threshold first (boost 1, then 8; ``ok``
+    false means it collected too few); the full sort is exact.
+    """
+    from fpmash_tpu_torch.ops.bottomk import bottom_k_distinct, bottom_k_threshold
+
+    s = p.sketch_size
+    if p.bloom_bytes > 0 and p.reads:
+        from fpmash_tpu_torch.ops.bloom import bloom_admit_counts
+
+        values, counts = bloom_admit_counts(hashes.cpu().numpy().view(np.uint64), p.bloom_bytes)
+        return values[:s], counts[:s]
+    valid = torch.ones(hashes.numel(), dtype=torch.bool, device=hashes.device)
+    if hashes.numel() > (1 << 17) and s * 16 <= (1 << 16):
+        need_counts = bool(p.counts or p.min_cov > 1 or p.target_cov > 0)
+        for boost in (1, 8):
+            values, counts, n, ok = bottom_k_threshold(
+                hashes, valid, s=s, min_cov=p.min_cov, boost=boost, need_counts=need_counts
+            )
+            if ok:
+                return _to_host(values, counts, n)
+    values, counts, n = bottom_k_distinct(hashes, valid, s=s, min_cov=p.min_cov)
+    return _to_host(values, counts, n)

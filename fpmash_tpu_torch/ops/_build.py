@@ -31,7 +31,14 @@ NVCC_FLAGS = (
 )
 
 _p, _i32, _i64, _u64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64, ctypes.c_uint64
+_u32 = ctypes.c_uint32
 _SIGNATURES = {
+    # seq, n, k, flags, seed, lo, hi, valid, stream
+    "fpmash_kmer_hashes": [_p, _i64, _i32, _i32, _u64, _p, _p, _p, _p],
+    # seq, n, length, k, flags, seed, t_hi, lo, hi, stream
+    "fpmash_kmer_hashes_masked": [_p, _i64, _i64, _i32, _i32, _u64, _u32, _p, _p, _p],
+    # seq, n, length, k, flags, seed, t_hi, clo, chi, overflow, stream
+    "fpmash_kmer_hashes_topk8": [_p, _i64, _i64, _i32, _i32, _u64, _u32, _p, _p, _p, _p],
     # flat, n_flat, starts, lengths, n_windows, seed, h1, h2, count, stream
     "fpmash_fingerprint": [_p, _i64, _p, _p, _i64, _u64, _p, _p, _p, _p],
     # ref, ref_len, n_ref, ref_stride, qry, qry_len, n_qry, qry_stride,

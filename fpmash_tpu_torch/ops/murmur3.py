@@ -15,7 +15,9 @@ image; ``numpy`` arrays of ``uint64`` cross with ``.view(np.int64)``.
 :func:`murmur3_u64_batch` is the counterpart of
 ``fpmash_tpu.ops.murmur3.murmur3_u64_batch`` (XLA there, not Pallas), the
 fingerprint hashing unit of hash.cpp:45-73: one vector of ``n`` u64 values
-hashes as its ``8 n``-byte little-endian image.
+hashes as its ``8 n``-byte little-endian image.  :func:`murmur3_bytes_batch`
+is the counterpart of ``murmur3_bytes_batch``, the classic k-mer hashing
+unit of hash.cpp:12-40: each row hashes as its first ``lengths[b]`` bytes.
 """
 
 from __future__ import annotations
@@ -112,6 +114,44 @@ def murmur3_u64_batch(vals: torch.Tensor, counts: torch.Tensor, seed: int = 42):
         tail = vals.gather(1, (counts - 1).clamp(min=0)[:, None])[:, 0]
         h1 = torch.where(counts % 2 == 1, h1 ^ _mix_k1(tail), h1)
     return _finalize(h1, h2, counts * 8)
+
+
+def murmur3_bytes_batch(data: torch.Tensor, lengths: torch.Tensor, seed: int = 42):
+    """Hash each row of ``data`` (``uint8 [B, L]``) over its first
+    ``lengths[b]`` bytes; returns ``(h1, h2)``, each ``int64 [B]``.
+
+    Bytes beyond ``lengths`` are ignored.  Rows pack into little-endian u64
+    words; full 16-byte blocks run while ``block < lengths // 16``, and the
+    1-15 tail bytes, zero-padded, mix into ``k1`` (bytes 0-7) and ``k2``
+    (bytes 8-15) as in the reference.
+    """
+    if data.dim() != 2 or data.dtype != torch.uint8:
+        raise ValueError(f"data must be uint8 [B, L], got {data.dtype} {tuple(data.shape)}")
+    B, L = data.shape
+    lengths = lengths.to(device=data.device, dtype=torch.int64)
+    pos = torch.arange(L, device=data.device)
+    data = torch.where(pos[None, :] < lengths[:, None], data, 0)
+    pad = (-L) % 16 + 16  # whole blocks, and one spare zero block for the tail
+    # 8 bytes viewed as one int64 are the little-endian word (CPUs and GPUs
+    # that run this are little-endian)
+    words = torch.nn.functional.pad(data, (0, pad)).view(torch.int64)
+    nblocks = lengths // 16
+
+    h1 = torch.full((B,), to_signed(seed), dtype=torch.int64, device=data.device)
+    h2 = h1.clone()
+    max_blocks = int(nblocks.max()) if B else 0
+    for blk in range(max_blocks):
+        n1, n2 = _block_update(h1, h2, words[:, 2 * blk], words[:, 2 * blk + 1])
+        full = blk < nblocks
+        h1 = torch.where(full, n1, h1)
+        h2 = torch.where(full, n2, h2)
+
+    tail = lengths % 16
+    k1 = words.gather(1, (2 * nblocks)[:, None])[:, 0]
+    k2 = words.gather(1, (2 * nblocks + 1)[:, None])[:, 0]
+    h2 = torch.where(tail > 8, h2 ^ _mix_k2(k2), h2)
+    h1 = torch.where(tail > 0, h1 ^ _mix_k1(k1), h1)
+    return _finalize(h1, h2, lengths)
 
 
 def _finalize(h1, h2, byte_len):

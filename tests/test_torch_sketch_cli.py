@@ -182,10 +182,11 @@ def test_unported_routes_say_so(golden_dir, tmp_path):
         port_main(["sketch", "--direct-fp", fasta, "--factorization", "LYNDON",
                    "-o", str(tmp_path / "x"), "--device", "cpu"])
     assert not (tmp_path / "x.msh").exists()
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        port_main(["sketch", fasta, "-o", str(tmp_path / "x"), "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        port_main(["dist", fasta, fasta, "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="slice 5"):
+        port_main(["sketch", "-W", fasta, "-o", str(tmp_path / "x"), "--device", "cpu"])
+    assert not (tmp_path / "x.msh").exists() and not (tmp_path / "x.msw").exists()
+    with pytest.raises(NotImplementedError, match="slice 5"):
+        port_main(["dist", "-W", fasta, fasta, "--device", "cpu"])
 
 
 @pytest.mark.parametrize("family", ["ICFL", "ICFL_COMB", "CFL_COMB", "CFL_ICFL_COMB-10"])
