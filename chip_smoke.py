@@ -6,20 +6,26 @@ Run from the root of a checkout on a machine with a CUDA card.  It builds
 the CUDA kernels from ``fpmash_tpu_torch/csrc`` into ``build/``, holds each
 kernel against its plain PyTorch version on the card, reproduces the DNA3
 golden sketch, the lyn2vec goldens of all ten factorization families and
-the reference's classic goldens (``reads.msh``, ``genomes.dist``) through
-the CLI, and drives three main paths at the size users run: two FASTAs of
-256 reads x 2 000 bases (``sketch --direct-fp`` on each, CFL and then
-ICFL_COMB, then ``dist -fp`` over the 65 536 pairs), and the classic k-mer
-MinHash workflow at E. coli scale (three 5 Mbase genomes and a 50 Mbase read
-set: ``sketch``, ``sketch -r -m 2``, ``sketch -s 10000``, ``sketch -k 16``,
-``dist``).  Every phase passes or raises; nothing is caught.
+the reference's classic goldens (``reads.msh``, ``genomes.dist``,
+``screen_ref.txt``) through the CLI, and drives four main paths at the size
+users run: two FASTAs of 256 reads x 2 000 bases (``sketch --direct-fp`` on
+each, CFL and then ICFL_COMB, then ``dist -fp`` over the 65 536 pairs); the
+classic k-mer MinHash workflow at E. coli scale (three 5 Mbase genomes and a
+50 Mbase read set: ``sketch``, ``sketch -r -m 2``, ``sketch -s 10000``,
+``sketch -k 16``, ``dist``, ``screen``); and BASELINE config 4, all-pairs
+distance over 10 000 sketches of s = 1000 (the sorted comparison K9 over
+10^8 pairs, held pair for pair against the walk K2; ``dist`` of 10 000 x
+100 sketches, ``triangle`` and ``triangle -fp`` over 1 000).  Every phase
+passes or raises; nothing is caught.
 
 The last three lines of standard output are the kernels' JSON record
 (launch counts from the main paths, for the Duval base of
-``factor_words`` from the families' CLI runs and for the unmasked k-mer
-kernel K7 from the classic goldens, whose read set takes the pool route;
-exact-match errors; kernel and plain times), the card's ``name,
-power.limit`` as ``nvidia-smi`` gives them, and
+``factor_words`` from the families' CLI runs; exact-match errors; kernel
+and plain times at one shape, for K9 ``dist``'s with its ``pairs`` and its
+10^8-pair time beside it; each kernel's bound, the least time the card
+could take for its work, from its bytes and integer operations at that
+shape), the
+card's ``name, power.limit`` as ``nvidia-smi`` gives them, and
 ``{"ok": true, "device": {...}}``.  Without a usable card, or outside a
 checkout, it exits nonzero and prints no result.  It never imports JAX.
 """
@@ -53,6 +59,40 @@ def _time_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+#: the card's memory rate, bytes/s (H100 SXM data sheet)
+HBM_BYTES_PER_S = 3.35e12
+#: 32-bit integer operations/s: 132 SMs x 64 INT32 lanes x 1.98 GHz boost clock
+INT_OPS_PER_S = 132 * 64 * 1.98e9
+#: 32-bit operations of MurmurHash3_x64_128 per 8-byte word it mixes (two
+#: 64-bit multiplies, a rotate, xors and the state update), and of its
+#: finalization (two fmix64 and the sums)
+MURMUR_WORD_OPS, MURMUR_FINAL_OPS = 20, 40
+
+
+def _bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take for a kernel's work: the larger of
+    its bytes (each input read once, each output written once) over the
+    memory rate and its 32-bit integer operations over the integer rate.
+    No single PyTorch call computes any of these kernels' functions, so
+    ``library_ms`` is None for all of them."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None}
+
+
+def _lists_bytes(ref, qry) -> int:
+    """Two list sets ``int64 [n, S]`` with ``int32`` lengths read once, and
+    ``int32`` common and denom of every pair written once."""
+    R, Q = ref.shape[0], qry.shape[0]
+    return (ref.numel() + qry.numel()) * 8 + (R + Q) * 4 + R * Q * 8
+
+
+def _hash_ops(counts, rows: int) -> int:
+    """Operations of MurmurHash3 over ``rows`` vectors of ``counts`` words."""
+    return MURMUR_WORD_OPS * int(counts.clamp(min=0).sum()) + MURMUR_FINAL_OPS * rows
 
 
 def _max_abs_err(pairs) -> float:
@@ -218,19 +258,21 @@ MAIN_PATH_KERNELS = {"CFL": ("fingerprint", "walk"),
 
 def _reset_counts():
     from fpmash_tpu_torch.models import fingerprint
-    from fpmash_tpu_torch.ops import fused_cuda, icfl_cuda, kmers_cuda, walk_cuda
+    from fpmash_tpu_torch.ops import compare_cuda, fused_cuda, icfl_cuda, kmers_cuda, walk_cuda
 
     fused_cuda.LAUNCHES = 0
     walk_cuda.LAUNCHES = 0
+    compare_cuda.LAUNCHES = 0
     icfl_cuda.LAUNCHES.update(dict.fromkeys(icfl_cuda.LAUNCHES, 0))
     kmers_cuda.LAUNCHES.update(dict.fromkeys(kmers_cuda.LAUNCHES, 0))
     fingerprint.SCALAR_ROWS.update(dict.fromkeys(fingerprint.SCALAR_ROWS, 0))
 
 
 def _launches() -> dict:
-    from fpmash_tpu_torch.ops import fused_cuda, icfl_cuda, kmers_cuda, walk_cuda
+    from fpmash_tpu_torch.ops import compare_cuda, fused_cuda, icfl_cuda, kmers_cuda, walk_cuda
 
-    out = {"fingerprint": fused_cuda.LAUNCHES, "walk": walk_cuda.LAUNCHES}
+    out = {"fingerprint": fused_cuda.LAUNCHES, "walk": walk_cuda.LAUNCHES,
+           "compare": compare_cuda.LAUNCHES}
     for key, n in icfl_cuda.LAUNCHES.items():
         out["hash_words" if key == "hash_words" else f"factor_words:{key}"] = n
     for key, n in kmers_cuda.LAUNCHES.items():
@@ -339,6 +381,10 @@ def phase_main_shapes(dev, work: Path, seqs_a):
         "max_abs_err": _max_abs_err(zip(got, want)),
         "ms": _time_ms(lambda: fused_cuda.fingerprint_hashes(*k1_args, 42), 50),
         "plain_ms": _time_ms(lambda: fused_cuda.fingerprint_hashes_plain(*k1_args, 42), 3),
+        # the stream, starts and lengths in, h1, h2 and count out; Duval reads
+        # each character once, then MurmurHash3 of the factor lengths
+        **_bound(k1_args[0].numel() + starts.numel() * (8 + 4 + 20),
+                 int(k1_args[2].clamp(min=0).sum()) + _hash_ops(want[2], starts.numel())),
     }
 
     ref, qry = Sketch(), Sketch()
@@ -351,10 +397,13 @@ def phase_main_shapes(dev, work: Path, seqs_a):
     want = walk_cuda.pairwise_walk_plain(*k2_args)
     if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
         raise AssertionError("K2 differs from the plain version on the dist sketches")
+    # a walk runs at least min(s, la, lb) steps: a 64-bit compare and a count each
+    steps = torch.minimum(k2_args[1].long()[:, None], k2_args[3].long()[None, :]).clamp(0, s)
     k2 = {
         "max_abs_err": _max_abs_err(zip(got, want)),
         "ms": _time_ms(lambda: walk_cuda.pairwise_walk(*k2_args), 50),
         "plain_ms": _time_ms(lambda: walk_cuda.pairwise_walk_plain(*k2_args), 3),
+        **_bound(_lists_bytes(k2_args[0], k2_args[2]), 3 * int(steps.sum())),
     }
     print(f"main-path shapes: K1 at {len(starts)} windows kernel {k1['ms']:.4f} ms, plain "
           f"{k1['plain_ms']:.4f} ms; K2 at {len(ref)}x{len(qry)} sketches of "
@@ -580,6 +629,10 @@ def phase_icfl_main_shapes(dev, work: Path, seqs_a):
             "max_abs_err": _max_abs_err(zip(got, want)),
             "ms": _time_ms(lambda f=family: icfl_cuda.factor_words(*args, f), 20),
             "plain_ms": _time_ms(lambda f=family: icfl_cuda.factor_words_plain(*args, f), 1),
+            # the stream, starts and lengths in, boundary words and ok out; a
+            # COMB family reads each character at least once on each strand
+            **_bound(args[0].numel() + args[1].numel() * (8 + 4) + got[0].numel() * 4
+                     + got[1].numel(), 2 * int(args[2].clamp(min=0).sum())),
         }
         if family == "ICFL_COMB":
             words = got[0]
@@ -598,6 +651,10 @@ def phase_icfl_main_shapes(dev, work: Path, seqs_a):
         "max_abs_err": _max_abs_err(zip(got, want)),
         "ms": _time_ms(lambda: icfl_cuda.hash_words(words, args[2], 42), 50),
         "plain_ms": _time_ms(lambda: icfl_cuda.hash_words_plain(words, args[2], 42), 3),
+        # words and lengths in, h1, h2 and count out; one operation a word to
+        # find the boundaries, then MurmurHash3 of the factor lengths
+        **_bound(words.numel() * 4 + args[2].numel() * (4 + 20),
+                 words.numel() + _hash_ops(got[2], args[2].numel())),
     }
     for family in ("ICFL", "CFL"):  # one pass of each base, for reference
         ms = _time_ms(lambda f=family: icfl_cuda.factor_words(*args, f), 20)
@@ -618,7 +675,8 @@ def phase_icfl_main_shapes(dev, work: Path, seqs_a):
 #: and reads of SHORT_READ bases at COVERAGE x of the first, 1 % errors
 GENOME_LEN, SHORT_READ, COVERAGE = 5_000_000, 150, 10
 #: the kernels the classic main path must launch (keys of _launches())
-CLASSIC_PATH_KERNELS = ("kmer:topk8", "kmer:masked", "kmer:planes_k16", "walk")
+CLASSIC_PATH_KERNELS = ("kmer:topk8", "kmer:masked", "kmer:planes_k16", "kmer:planes_k32",
+                        "compare")
 
 
 def _mixed_dna(rng, n: int):
@@ -703,10 +761,11 @@ def phase_kmer_kernels(dev, rng):
 def phase_classic_goldens(work: Path):
     """The reference's classic goldens on cuda through the CLI: ``sketch -r
     -I reads reads1.fastq reads2.fastq`` equals ``reads.msh`` (hashes,
-    counts, length 502 359, comment), and ``dist`` of the three genome
-    sketches against it prints ``genomes.dist``.  The read set has under
-    2 Mi bases, so it takes the pool route (K7).  Returns this path's
-    launches."""
+    counts, length 502 359, comment), ``dist`` of the three genome sketches
+    against it prints ``genomes.dist`` (through K9), and ``screen`` of the
+    genome sketches against the two FASTQs prints ``screen_ref.txt``.  The
+    read set has under 2 Mi bases, so it takes the pool route (K7).
+    Returns this path's launches."""
     import io
 
     import numpy as np
@@ -729,13 +788,17 @@ def phase_classic_goldens(work: Path):
     rc = main(["sketch", "-r", "-I", "reads", str(new / "reads1.fastq"), str(new / "reads2.fastq"),
                "-o", str(out / "reads"), "--device", "cuda"])
     assert rc == 0, rc
-    printed = io.StringIO()
+    printed, screened = io.StringIO(), io.StringIO()
     with contextlib.redirect_stdout(printed):
         rc = main(["dist", str(out / "genomes.msh"), str(out / "reads.msh"), "--device", "cuda"])
     assert rc == 0, rc
+    with contextlib.redirect_stdout(screened), contextlib.redirect_stderr(io.StringIO()):
+        rc = main(["screen", str(out / "genomes.msh"), str(new / "reads1.fastq"),
+                   str(new / "reads2.fastq"), "--device", "cuda"])
+    assert rc == 0, rc
     launches = _launches()
-    if launches["kmer:planes_k32"] < 1 or launches["walk"] < 1:
-        raise AssertionError(f"the goldens did not launch K7 and K2: {launches}")
+    if launches["kmer:planes_k32"] < 2 or launches["compare"] < 1:
+        raise AssertionError(f"the goldens did not launch K7 (sketch, screen) and K9: {launches}")
 
     mine = read_msh(str(out / "reads.msh")).references[0]
     gold = read_msh(str(new / "reads.msh")).references[0]
@@ -748,8 +811,11 @@ def phase_classic_goldens(work: Path):
         raise AssertionError("sketch -r: hashes or counts differ from reads.msh")
     if printed.getvalue() != (ref / "genomes.dist").read_text():
         raise AssertionError("dist genomes.msh reads.msh differs from genomes.dist")
+    if screened.getvalue() != (ref / "screen_ref.txt").read_text():
+        raise AssertionError("screen genomes.msh reads1.fastq reads2.fastq differs from screen_ref.txt")
     print(f"golden: sketch -r on cuda equals reads.msh (length {mine.length}, "
-          f"{len(mine.hashes64)} hashes and counts); dist prints genomes.dist; launches {launches}")
+          f"{len(mine.hashes64)} hashes and counts); dist prints genomes.dist; screen prints "
+          f"screen_ref.txt; launches {launches}")
     return launches
 
 
@@ -786,17 +852,17 @@ def _write_reads(path: Path, rng, genome, n_reads: int, read_len: int, error: fl
                           for i, row in enumerate(text)))
 
 
-def _pool_oracle(seqs, p, dev, plain: bool = False):
-    """``bottom_k_host`` over every k-mer hash of ``seqs``: the byte stream
-    the sketch routes build, hashed on the card in one launch of the
-    unmasked kernel (K7/K8) or by its plain version, then downloaded.  It
-    shares nothing with K5, K6, the thresholds or the chunk merge."""
+def _pool(seqs, p, dev, plain: bool = False):
+    """Every k-mer hash of ``seqs`` as a host array: the byte stream the
+    sketch routes build, hashed on the card in one launch of the unmasked
+    kernel (K7/K8) or by its plain version, then downloaded.  It shares
+    nothing with K5, K6, the thresholds, the chunk merge or ``screen``'s
+    pool chunks and counting."""
     import numpy as np
     import torch
 
     from fpmash_tpu_torch.models.sketch import _blob
     from fpmash_tpu_torch.ops import kmers_cuda
-    from fpmash_tpu_torch.ops.bottomk import bottom_k_host
 
     stream = torch.from_numpy(_blob(seqs, p.kmer_size).copy()).to(dev)
     hashes = kmers_cuda.kmer_hashes_planes_plain if plain else kmers_cuda.kmer_hashes_planes
@@ -804,7 +870,14 @@ def _pool_oracle(seqs, p, dev, plain: bool = False):
     pool = kmers_cuda.join_planes(lo, hi)[valid]
     if not p.use64:
         pool &= 0xFFFFFFFF
-    return bottom_k_host(pool.cpu().numpy().view(np.uint64), p.sketch_size, p.min_cov)
+    return pool.cpu().numpy().view(np.uint64)
+
+
+def _pool_oracle(seqs, p, dev, plain: bool = False):
+    """``bottom_k_host`` of :func:`_pool`."""
+    from fpmash_tpu_torch.ops.bottomk import bottom_k_host
+
+    return bottom_k_host(_pool(seqs, p, dev, plain), p.sketch_size, p.min_cov)
 
 
 def phase_classic_main_path(dev, rng, work: Path):
@@ -813,10 +886,12 @@ def phase_classic_main_path(dev, rng, work: Path):
     independent) and 150-base reads at 10x of g1 with 1 % errors.
     ``sketch g1 g2 g3`` (K5), ``sketch -r -m 2 reads.fq`` (K5, collect-all),
     ``sketch -s 10000 g1`` (K6: below K5's gate), ``sketch -k 16 g1`` (K8,
-    pool path) and ``dist genomes.msh reads.msh`` (K2), with the counts
-    set to 0 just before and read just after.  Each sketch must equal
-    :func:`_pool_oracle` of its input, and each ``dist`` line the literal
-    walk.  Returns the launches and the walls."""
+    pool path), ``dist genomes.msh reads.msh`` (K9) and ``screen genomes.msh
+    reads.fq`` (K7 over the whole read set, then its distinct counts), with
+    the counts set to 0 just before and read just after.  Each sketch must
+    equal :func:`_pool_oracle` of its input, each ``dist`` line the literal
+    walk, and each ``screen`` line the one computed from ``np.unique`` of
+    the K7 pool.  Returns the launches and the walls."""
     import io
 
     import numpy as np
@@ -825,6 +900,7 @@ def phase_classic_main_path(dev, rng, work: Path):
     from fpmash_tpu_torch.cli import main
     from fpmash_tpu_torch.models.distance import compare_sketches
     from fpmash_tpu_torch.models.sketch import Sketch, SketchParams
+    from fpmash_tpu_torch.ops.bottomk import bottom_k_host
     from fpmash_tpu_torch.utils import trace as trace_mod
     from fpmash_tpu_torch.utils.fasta import read_sequences
     from fpmash_tpu_torch.utils.msh import read_msh
@@ -852,6 +928,7 @@ def phase_classic_main_path(dev, rng, work: Path):
         "sketch -s 10000 g1": ["sketch", "-s", "10000", genomes[0], "-o", str(out / "g1_s10000")],
         "sketch -k 16 g1": ["sketch", "-k", "16", genomes[0], "-o", str(out / "g1_k16")],
         "dist genomes.msh reads.msh": ["dist", str(out / "genomes.msh"), str(out / "reads.msh")],
+        "screen genomes.msh reads.fq": ["screen", str(out / "genomes.msh"), str(out / "reads.fq")],
     }
     walls, spans, printed = {}, {}, {}
     trace_mod._ENABLED = True  # the stage spans go to stderr, captured below
@@ -891,8 +968,9 @@ def phase_classic_main_path(dev, rng, work: Path):
         if not np.array_equal(ref.hashes64, _pool_oracle(records(f"g{i}.fna"), SketchParams(),
                                                          dev)[0]):
             raise AssertionError(f"sketch g{i}.fna differs from bottom_k_host of the K7 pool")
-    check("reads.msh", _pool_oracle(records("reads.fq"), SketchParams(min_cov=2), dev),
-          "sketch -r -m 2", counts=True)
+    reads_pool = _pool(records("reads.fq"), SketchParams(), dev)
+    check("reads.msh", bottom_k_host(reads_pool, 1000, 2), "sketch -r -m 2", counts=True)
+    _check_screen(printed["screen genomes.msh reads.fq"], out / "genomes.msh", reads_pool)
     check("g1_s10000.msh", _pool_oracle(records("g1.fna"), SketchParams(sketch_size=10_000), dev),
           "sketch -s 10000")
     check("g1_k16.msh", _pool_oracle(records("g1.fna"), SketchParams(kmer_size=16), dev,
@@ -934,6 +1012,44 @@ def phase_classic_main_path(dev, rng, work: Path):
     return launches, walls
 
 
+def _check_screen(text: str, genomes: Path, pool) -> None:
+    """``screen``'s lines against an oracle that shares none of its
+    counting: ``pool``, every k-mer hash of the reads (:func:`_pool`; reads
+    are all longer than k), ``np.unique``d on the host, and each
+    reference's shared hashes, median multiplicity and p-value from that."""
+    import numpy as np
+
+    from fpmash_tpu_torch.commands.screen_cmd import estimate_identity
+    from fpmash_tpu_torch.models.sketch import Sketch
+    from fpmash_tpu_torch.ops.bottomk import estimate_set_size
+    from fpmash_tpu_torch.scalar.stats import format_g, screen_pvalue
+
+    t0 = time.perf_counter()
+    ref = Sketch()
+    ref.load_msh(str(genomes))
+    p = ref.params
+    t1 = time.perf_counter()
+    values, counts = np.unique(pool, return_counts=True)
+    t_unique = time.perf_counter() - t1
+    set_size = int(estimate_set_size(values, p.sketch_size, 64 if p.use64 else 32))
+    want = []
+    for r in ref.references:
+        at = np.minimum(np.searchsorted(values, r.hashes), len(values) - 1)
+        hit = values[at] == r.hashes
+        shared, denom = int(hit.sum()), len(r.hashes)
+        if shared:
+            depth = np.sort(counts[at[hit]])
+            identity = estimate_identity(shared, denom, p.kmer_size)
+            pv = screen_pvalue(shared, set_size, p.kmer_space, denom)
+            want.append(f"{format_g(identity)}\t{shared}/{denom}\t{int(depth[shared // 2])}\t"
+                        f"{format_g(pv)}\t{r.name}\t{r.comment}")
+    if text.splitlines() != want or not want:
+        raise AssertionError(f"screen differs from np.unique of the K7 pool:\n{text}\n{want}")
+    print(f"classic main path: screen equals the np.unique oracle of the K7 pool ({len(pool)} "
+          f"hashes, {len(values)} distinct; {time.perf_counter() - t0:.1f} s, np.unique "
+          f"{t_unique:.1f} s)")
+
+
 def phase_kmer_main_shapes(dev, work: Path):
     """K5-K8 against their plain versions at the main path's shape, one
     chunk of 16 Mi positions: g1.fna as the direct route ships it, with the
@@ -967,6 +1083,11 @@ def phase_kmer_main_shapes(dev, work: Path):
             "max_abs_err": _max_abs_err(zip(got, want)),
             "ms": _time_ms(lambda f=kernel, c=cut, k=k: f(seq, *c, k=k), 20),
             "plain_ms": _time_ms(lambda f=plain, c=cut, k=k: f(seq, *c, k=k), 3),
+            # the chunk in, the planes out; per position about 10 operations
+            # for the codes, the rolling forward and reverse-complement words
+            # and the canonical pick, then MurmurHash3 of the k bytes
+            **_bound(N + sum(g.numel() * g.element_size() for g in got),
+                     N * (10 + MURMUR_WORD_OPS * -(-k // 8) + MURMUR_FINAL_OPS)),
         }
         if name == "k5" and bool(got[2]):
             raise AssertionError("K5 overflowed a group on g1's chunk")
@@ -975,6 +1096,301 @@ def phase_kmer_main_shapes(dev, work: Path):
           + "; ".join(f"{name.upper()} kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms"
                       for name, t in out.items()))
     return out["k5"], out["k6"], out["k7"], out["k8"]
+
+
+# ---------------------------------------------------------------------- #
+# the sorted all-pairs comparison: K9, and BASELINE config 4
+# ---------------------------------------------------------------------- #
+
+U64MAX = 0xFFFFFFFFFFFFFFFF
+
+
+def _k9_cases(rng):
+    """Sorted lists for K9: (name, ref, ref_len, qry, qry_len, caps)."""
+    import numpy as np
+
+    def pick(pool, n, width):
+        return np.stack([np.sort(pool[rng.choice(len(pool), width, replace=False)])
+                         for _ in range(n)])
+
+    # even hashes from a shared pool; odd ones are fresh, so disjoint
+    pool = np.unique(rng.integers(0, U64MAX, size=8000, dtype=np.uint64) & np.uint64(U64MAX - 1))
+    fresh = np.unique(rng.integers(0, U64MAX, size=4000, dtype=np.uint64) | np.uint64(1))
+    ref, qry = pick(pool, 37, 1200), pick(pool, 53, 1200)
+    qry[0] = ref[0]  # identical
+    qry[1] = fresh[:1200]  # disjoint
+    qry[2] = np.sort(np.concatenate([ref[3][:1080], fresh[1200:1320]]))  # 90 % shared
+    rl, ql = np.full(37, 1200, np.int32), np.full(53, 1200, np.int32)
+    rl[5:11] = [0, 1, 63, 64, 999, 1001]
+    ql[5:11] = [1001, 0, 1, 65, 1000, 1200]
+    cases = [("distinct 37x53 of 1200", ref, rl, qry, ql, (64, 1000, 10_000))]
+
+    # rows wider than the 4 096 hashes staged in shared memory
+    wide = np.unique(rng.integers(0, U64MAX, size=30_000, dtype=np.uint64))
+    ref, qry = pick(wide, 5, 6000), pick(wide, 11, 6000)
+    qry[0] = ref[0]
+    rl, ql = np.full(5, 6000, np.int32), np.full(11, 6000, np.int32)
+    rl[1], ql[1:4] = 4097, [4096, 0, 5000]
+    cases.append(("wide 5x11 of 6000", ref, rl, qry, ql, (1000, 10_000)))
+
+    # sorted rows with repeats, some with the high bit, some ending in a real 2^64 - 1
+    small = np.concatenate([rng.integers(0, 1 << 20, 150, dtype=np.uint64),
+                            rng.integers(1 << 63, U64MAX, 50, dtype=np.uint64)])
+    ref = np.sort(small[rng.integers(0, 200, (29, 300))], axis=1)
+    qry = np.sort(small[rng.integers(0, 200, (41, 300))], axis=1)
+    ref[::4, -3:] = U64MAX
+    qry[1::3, -1:] = U64MAX
+    rl = rng.integers(0, 301, 29).astype(np.int32)
+    ql = rng.integers(0, 301, 41).astype(np.int32)
+    rl[:3], ql[:3] = [0, 1, 300], [300, 0, 300]
+    cases.append(("repeats 29x41 of 300", ref, rl, qry, ql, (1, 64, 1000)))
+    return cases
+
+
+def phase_k9(dev, rng):
+    """K9 against its plain version, exactly, on sorted lists: identical,
+    disjoint and 90 %-shared pairs; lengths 0, 1, below and above the cap;
+    caps 64, 1 000 and 10 000; rows wider than the shared-memory stage;
+    rows with repeats and a real 2^64 - 1 hash; R and Q not multiples of 8.
+    Returns the largest error."""
+    import numpy as np
+    import torch
+
+    from fpmash_tpu_torch.ops import compare_cuda
+
+    err, checked = 0.0, []
+    for name, ref, rl, qry, ql, caps in _k9_cases(rng):
+        args = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                     for a in (ref.view(np.int64), rl, qry.view(np.int64), ql))
+        for cap in caps:
+            got = compare_cuda.pairwise_common_denom(*args, cap)
+            want = compare_cuda.pairwise_common_denom_plain(*args, cap)
+            torch.cuda.synchronize()
+            for g, w, what in zip(got, want, ("common", "denom")):
+                if not torch.equal(g, w):
+                    bad = int((g != w).sum())
+                    raise AssertionError(f"K9 {what} differs from the plain version in {bad} "
+                                         f"pairs ({name}, cap {cap})")
+            if int(got[0].sum()) == 0:
+                raise AssertionError(f"K9 test lists share nothing ({name}); the check is vacuous")
+            err = max(err, _max_abs_err(zip(got, want)))
+            checked.append(f"{name} cap {cap}")
+    print(f"K9 compare: equal to the plain version on {len(checked)} sets: " + "; ".join(checked))
+    return err
+
+
+#: BASELINE config 4: all-pairs distance over N_ALL classic sketches (k = 21,
+#: s = 1000) in N_CLUSTERS clusters of related genomes, each cluster's
+#: members drawn from a base set of BASE_SET hashes
+N_ALL, N_CLUSTERS, BASE_SET, SKETCH = 10_000, 100, 3_000, 1000
+#: the config-4 CLI runs: dist over N_ALL x N_QRY pairs, triangle over N_TRI
+N_QRY, N_TRI = 100, 1000
+
+
+def _cluster_lists(rng, dev, n: int, width: int, keep: int, sort: bool):
+    """``n`` hash lists in ``N_CLUSTERS`` interleaved clusters (member ``i``
+    in cluster ``i % N_CLUSTERS``).  Each cluster draws ``width`` random
+    hashes; each member replaces a fraction ``m ~ U(0, 1)`` of them with
+    fresh ones (``m = 0`` for the first member of each cluster), so two
+    members share about ``(1 - m1)(1 - m2)`` of their hashes and members of
+    two clusters almost none.  Sorted: the ``keep`` smallest, ascending (a
+    MinHash sketch); else the first ``keep`` in place (a fingerprint, 32-bit)."""
+    import numpy as np
+    import torch
+
+    from fpmash_tpu_torch.ops.murmur3 import _SIGN
+
+    top = U64MAX if sort else 0xFFFFFFFF  # exclusive: no list holds the pad
+    base = rng.integers(0, top, size=(N_CLUSTERS, width), dtype=np.uint64)
+    members = base[np.arange(n) % N_CLUSTERS]
+    rate = rng.random(n)
+    rate[:N_CLUSTERS] = 0.0
+    swap = rng.random((n, width), dtype=np.float32) < rate[:, None]
+    members[swap] = rng.integers(0, top, size=int(swap.sum()), dtype=np.uint64)
+    if not sort:
+        return list(members[:, :keep])
+    x = torch.from_numpy(members.view(np.int64)).to(dev) ^ _SIGN
+    x = torch.sort(x, dim=1).values[:, :keep]
+    if not bool((x[:, 1:] > x[:, :-1]).all()):
+        raise AssertionError("a generated sketch repeats a hash")
+    return list((x ^ _SIGN).cpu().numpy().view(np.uint64))
+
+
+def _write_sketch(path: Path, lists, params: dict, length: int) -> None:
+    from fpmash_tpu_torch.models.sketch import sketch_from_arrays
+
+    refs = [dict(name=f"s{i}", comment=f"cluster {i % N_CLUSTERS}", length=length, hashes=h)
+            for i, h in enumerate(lists)]
+    sketch_from_arrays(params, refs).write_msh(str(path))
+
+
+def phase_config4(dev, rng, work: Path):
+    """BASELINE config 4 on one card: all-pairs distance over 10 000 classic
+    sketches (k = 21, s = 1000).  With the counts set to 0 just before and
+    read just after: ``ops/compare.all_pairs_common_denom`` over all 10^8
+    pairs (K9), and through the CLI ``dist refs.msh qrys.msh`` (10 000 x 100
+    sketches), ``triangle`` over 1 000 of them and ``triangle -fp`` over
+    1 000 fingerprint sketches (positional).  Then every one of the 10^8
+    pairs against K2's walk on the card (equal to the literal walk on
+    sorted distinct lists), and samples of the CLI lines against the
+    literal walk and ``compare_fingerprints``.  Returns the launches, K9's
+    record at this shape, and the walls."""
+    import dataclasses
+    import io
+
+    import numpy as np
+    import torch
+
+    from fpmash_tpu_torch.cli import main
+    from fpmash_tpu_torch.models.distance import compare_fingerprints, compare_sketches
+    from fpmash_tpu_torch.models.sketch import Sketch, SketchParams
+    from fpmash_tpu_torch.ops import compare, compare_cuda, walk, walk_cuda
+    from fpmash_tpu_torch.ops.walk import pad_lists
+    from fpmash_tpu_torch.scalar.stats import format_g
+
+    out = work / "config4"
+    out.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    lists = _cluster_lists(rng, dev, N_ALL + N_QRY, BASE_SET, SKETCH, sort=True)
+    refs = lists[:N_ALL]
+    classic = dict(kmer_size=21, sketch_size=SKETCH)
+    _write_sketch(out / "refs.msh", refs, classic, 5_000_000)
+    _write_sketch(out / "qrys.msh", lists[N_ALL:], classic, 5_000_000)
+    _write_sketch(out / "tri.msh", refs[:N_TRI], classic, 5_000_000)
+    fp_lists = [h[: int(n)] for h, n in zip(
+        _cluster_lists(rng, dev, N_TRI, SKETCH, SKETCH, sort=False),
+        rng.integers(SKETCH // 2, SKETCH + 1, N_TRI))]
+    _write_sketch(out / "fp.msh", fp_lists, dataclasses.asdict(SketchParams().for_fingerprint()),
+                  SKETCH)
+    print(f"config 4: {N_ALL + N_QRY} sketches of {SKETCH} in {N_CLUSTERS} clusters and "
+          f"{N_TRI} fingerprint sketches made and written in {time.perf_counter() - t0:.1f} s")
+
+    commands = {
+        "dist refs.msh qrys.msh": ["dist", str(out / "refs.msh"), str(out / "qrys.msh")],
+        "triangle tri.msh": ["triangle", str(out / "tri.msh")],
+        "triangle -fp fp.msh": ["triangle", "-fp", str(out / "fp.msh")],
+    }
+    walls = {}
+    _reset_counts()
+    t0 = time.perf_counter()
+    common, denom = compare.all_pairs_common_denom(refs, refs, SKETCH, device=dev)
+    walls["all_pairs_common_denom"] = time.perf_counter() - t0
+    for name, argv in commands.items():
+        t0 = time.perf_counter()
+        with open(out / f"{argv[0]}{'-fp' if '-fp' in argv else ''}.txt", "w") as fh, \
+                contextlib.redirect_stdout(fh), contextlib.redirect_stderr(io.StringIO()):
+            rc = main([*argv, "--device", "cuda"])
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        assert rc == 0, (name, rc)
+    launches = _launches()
+    if launches["compare"] < 3:
+        raise AssertionError(f"config 4 did not launch K9 in all-pairs, dist and triangle: "
+                             f"{launches}")
+
+    t0 = time.perf_counter()
+    walk_c, walk_d = walk.all_pairs_walk(refs, refs, SKETCH, device=dev)
+    if not (np.array_equal(common, walk_c) and np.array_equal(denom, walk_d)):
+        bad = int(((common != walk_c) | (denom != walk_d)).sum())
+        raise AssertionError(f"K9 differs from K2's walk in {bad} of the {N_ALL ** 2} pairs")
+    shared = common / np.maximum(denom, 1)
+    spread = np.histogram(shared, bins=[0, 1e-9, 0.25, 0.5, 0.75, 1.0 - 1e-9, 1.0 + 1e-9])[0]
+
+    lines = (out / "dist.txt").read_text().splitlines()
+    qry = Sketch()
+    qry.load_msh(str(out / "qrys.msh"))
+    if len(lines) != N_ALL * N_QRY:
+        raise AssertionError(f"dist printed {len(lines)} lines, not {N_ALL * N_QRY}")
+    for li in rng.choice(len(lines), 64, replace=False):
+        qi, ri = divmod(int(li), N_ALL)
+        r, q = refs[ri], qry.references[qi]
+        res = compare_sketches(r, q.hashes, 5_000_000, q.length, SKETCH, 21, 4.0**21)
+        want = f"s{ri}\t{q.name}\t{format_g(res.distance)}\t{format_g(res.pvalue)}\t" \
+               f"{res.numer}/{res.denom}"
+        if lines[li] != want:
+            raise AssertionError(f"dist line {li} differs from the literal walk: {lines[li]}")
+    for name, file, cmp in (("triangle", "triangle.txt", "walk"),
+                            ("triangle -fp", "triangle-fp.txt", "positional")):
+        rows = (out / file).read_text().splitlines()
+        if len(rows) != N_TRI + 1 or rows[0] != f"\t{N_TRI}":
+            raise AssertionError(f"{name} printed {len(rows)} rows")
+        for i in rng.integers(1, N_TRI, 32):
+            j = int(rng.integers(0, i))
+            cells = rows[i + 1].split("\t")
+            if cmp == "walk":
+                res = compare_sketches(refs[i], refs[j], 1, 1, SKETCH, 21, 4.0**21)
+            else:
+                res = compare_fingerprints(fp_lists[i], fp_lists[j])
+            if len(cells) != i + 1 or cells[j + 1] != format_g(res.distance):
+                raise AssertionError(f"{name} row {i} column {j} differs from the literal "
+                                     f"comparison: {cells[j + 1]} vs {res.distance}")
+    print(f"config 4: K9 equals K2's walk on all {N_ALL ** 2} pairs; shared fraction 0 / (0, "
+          f"1/4) / [1/4, 1/2) / [1/2, 3/4) / [3/4, 1) / 1: {spread.tolist()}; dist, triangle and "
+          f"triangle -fp lines equal the literal comparisons ({time.perf_counter() - t0:.1f} s)")
+
+    # K9 against its plain version, exactly, at every shape the main path
+    # launched it at: 32 rows of each all-pairs launch ([rows, N_ALL] x
+    # [N_ALL], read from the main path's own output), and dist's [N_ALL] x
+    # [N_QRY] and triangle's [N_TRI] x [N_TRI] launched anew
+    t0 = time.perf_counter()
+    ref, ref_len = pad_lists(refs, dev)
+    qry, qry_len = pad_lists(lists[N_ALL:], dev)
+    rows = compare._TILE_PAIRS // N_ALL
+    pick = np.sort(np.concatenate([rng.choice(rows, 32, replace=False),
+                                   rows + rng.choice(N_ALL - rows, 32, replace=False)]))
+    sel = torch.from_numpy(pick).to(dev)
+    want = compare_cuda.pairwise_common_denom_plain(ref[sel], ref_len[sel], ref, ref_len, SKETCH)
+    got = (torch.from_numpy(common[pick]), torch.from_numpy(denom[pick]))
+    want = tuple(w.cpu() for w in want)
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError(f"K9 differs from the plain version in rows {pick.tolist()} of "
+                             f"the all-pairs launches")
+    err = _max_abs_err(zip(got, want))
+    dist_args = (ref, ref_len, qry, qry_len, SKETCH)
+    tri_args = (ref[:N_TRI], ref_len[:N_TRI], ref[:N_TRI], ref_len[:N_TRI], SKETCH)
+    for name, a in (("dist", dist_args), ("triangle", tri_args)):
+        got = compare_cuda.pairwise_common_denom(*a)
+        want = compare_cuda.pairwise_common_denom_plain(*a)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"K9 differs from the plain version at {name}'s shape "
+                                 f"{a[0].shape[0]} x {a[2].shape[0]}")
+        err = max(err, _max_abs_err(zip(got, want)))
+        if name == "dist":
+            dist_common, dist_denom = got
+    print(f"config 4: K9 equals its plain version on {len(pick)} x {N_ALL} pairs of the "
+          f"all-pairs launches, at dist's {N_ALL} x {N_QRY} and at triangle's {N_TRI} x "
+          f"{N_TRI} ({time.perf_counter() - t0:.1f} s)")
+
+    def union_ops(c, d):
+        # every element of the union up to the cap: a 64-bit compare and an
+        # equality test, about 4 32-bit operations
+        return 4 * (int(d.sum(dtype=torch.int64)) + int(c.sum(dtype=torch.int64)))
+
+    # the record is at dist's shape, where the plain version runs in a
+    # fraction of a second; the 10^8-pair time and bound go beside it
+    args = (ref, ref_len, ref, ref_len, SKETCH)
+    k9 = {
+        "max_abs_err": err,
+        "ms": _time_ms(lambda: compare_cuda.pairwise_common_denom(*dist_args), 20),
+        "plain_ms": _time_ms(lambda: compare_cuda.pairwise_common_denom_plain(*dist_args), 1),
+        **_bound(_lists_bytes(ref, qry), union_ops(dist_common, dist_denom)),
+        "pairs": N_ALL * N_QRY,
+        "all_pairs_ms": _time_ms(lambda: compare_cuda.pairwise_common_denom(*args), 2),
+        "all_pairs_bound_ms": _bound(_lists_bytes(ref, ref),
+                                     union_ops(torch.from_numpy(common),
+                                               torch.from_numpy(denom)))["bound_ms"],
+        "all_pairs": N_ALL ** 2,
+    }
+    walk_ms = _time_ms(lambda: walk_cuda.pairwise_walk(*args), 2)
+    for name, wall in walls.items():
+        print(f"config 4: {name}: {wall:.3f} s wall")
+    print(f"config 4: K9 at dist's {N_ALL}x{N_QRY} pairs {k9['ms']:.4f} ms, plain version "
+          f"{k9['plain_ms']:.4f} ms, bound {k9['bound_ms']:.4f} ms ({k9['bound_by']}); K9 at "
+          f"{N_ALL}x{N_ALL} pairs {k9['all_pairs_ms']:.4f} ms "
+          f"({N_ALL ** 2 / k9['all_pairs_ms'] * 1e3:.4g} pairs/s), bound "
+          f"{k9['all_pairs_bound_ms']:.4f} ms; K2 at the same pairs {walk_ms:.4f} ms; "
+          f"launches {launches}")
+    return launches, k9, walls
 
 
 def main() -> int:
@@ -1023,11 +1439,15 @@ def main() -> int:
     k14["max_abs_err"] = max(k14["max_abs_err"], errs["cfl"])
 
     kmer_errs = phase_kmer_kernels(dev, rng)
-    golden_launches = phase_classic_goldens(work)
+    phase_classic_goldens(work)
     classic_launches, _ = phase_classic_main_path(dev, rng, work)
     k5, k6, k7, k8 = phase_kmer_main_shapes(dev, work)
     for t, key in ((k5, "topk8"), (k6, "masked"), (k7, "planes_k32"), (k8, "planes_k16")):
         t["max_abs_err"] = max(t["max_abs_err"], kmer_errs[key])
+
+    err9 = phase_k9(dev, rng)
+    config4_launches, k9, _ = phase_config4(dev, rng, work)
+    k9["max_abs_err"] = max(k9["max_abs_err"], err9)
 
     src = "fpmash_tpu_torch/csrc/"
     kernels = [
@@ -1054,10 +1474,13 @@ def main() -> int:
          "launches": classic_launches["kmer:masked"], **k6},
         {"name": "kmer_hashes_k32", "route": "cuda", "source": src + "kmer_hash.cu",
          "replaces": "fpmash_tpu/ops/kmers_pallas.py:510",
-         "launches": golden_launches["kmer:planes_k32"], **k7},
+         "launches": classic_launches["kmer:planes_k32"], **k7},
         {"name": "kmer_hashes_k16", "route": "cuda", "source": src + "kmer_hash.cu",
          "replaces": "fpmash_tpu/ops/kmers_pallas.py:411",
          "launches": classic_launches["kmer:planes_k16"], **k8},
+        {"name": "compare", "route": "cuda", "source": src + "compare.cu",
+         "replaces": "fpmash_tpu/ops/compare_pallas.py:41",
+         "launches": config4_launches["compare"], **k9},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -2,9 +2,13 @@
 
 Run ``python -m fpmash_tpu_torch <command> ...``.  Ported so far: ``sketch``
 (classic k-mer MinHash of FASTA/FASTQ, ``-fp`` and ``--direct-fp``; not
-``-W``), ``dist`` and ``fingerprint``; flags and
-output bytes match ``python -m fpmash_tpu``.  Every command takes ``--device`` (default
-``cuda``).
+``-W``), ``dist``, ``triangle`` (Phylip, ``-E``, ``-fp``), ``screen``
+(streaming, ``-w``, ``-s``, ``-fp``) and ``fingerprint``; flags and output
+bytes match ``python -m fpmash_tpu``.  Every command takes ``--device``
+(default ``cuda``, an error without a card; ``--device cpu`` runs the
+kernels' plain PyTorch versions), for example
+``python -m fpmash_tpu_torch triangle -E a.msh --device cpu`` or
+``python -m fpmash_tpu_torch screen refs.msh reads.fq``.
 """
 
 from __future__ import annotations
@@ -14,7 +18,13 @@ import sys
 
 
 def build_parser() -> argparse.ArgumentParser:
-    from fpmash_tpu_torch.commands import dist_cmd, lyn2vec_cmd, sketch_cmd
+    from fpmash_tpu_torch.commands import (
+        dist_cmd,
+        lyn2vec_cmd,
+        screen_cmd,
+        sketch_cmd,
+        triangle_cmd,
+    )
 
     parser = argparse.ArgumentParser(
         prog="fpmash",
@@ -24,6 +34,8 @@ def build_parser() -> argparse.ArgumentParser:
     sub = parser.add_subparsers(dest="command", metavar="<command>")
     sketch_cmd.add_parser(sub)
     dist_cmd.add_parser(sub)
+    triangle_cmd.add_parser(sub)
+    screen_cmd.add_parser(sub)
     lyn2vec_cmd.add_parser(sub)
     return parser
 

@@ -737,6 +737,26 @@ def _kmer_hash_pool(seqs: list[str], p: SketchParams, device) -> torch.Tensor:
     return out if p.use64 else out & 0xFFFFFFFF
 
 
+def _kmer_distinct_counts(seqs: list[str], p: SketchParams, device):
+    """Distinct hash values and multiplicities of every valid k-mer of
+    ``seqs``: ``(values u64 ascending, counts int64)`` as numpy arrays.
+
+    Counterpart of ``fpmash_tpu/models/sketch.py:1247`` (``screen``'s query
+    side, CommandScreen.cpp:81-151): the pool of :func:`_kmer_hash_pool`
+    (K7 for ``16 < k <= 32``, K8 for ``k <= 16``, collapsed to 32 bits
+    unless ``use64``) is counted on ``device``
+    (:func:`~fpmash_tpu_torch.ops.bottomk.distinct_counts`), and only the
+    distinct values and their counts leave it.
+    """
+    from fpmash_tpu_torch.ops.bottomk import distinct_counts
+
+    with trace("kmer-hash", bases=sum(map(len, seqs))):
+        pool = _kmer_hash_pool(seqs, p, device)
+    with trace("distinct-counts", pool=pool.numel()):
+        values, counts = distinct_counts(pool)
+        return values.cpu().numpy().view(np.uint64), counts.cpu().numpy()
+
+
 def _kmer_hash_pool_scalar(seqs: list[str], p: SketchParams) -> np.ndarray:
     """The scalar model of :func:`_kmer_hash_pool` (a test oracle): the
     reference's per-k-mer loop with ``hash_bytes``."""

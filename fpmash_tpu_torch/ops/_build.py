@@ -44,6 +44,8 @@ _SIGNATURES = {
     # ref, ref_len, n_ref, ref_stride, qry, qry_len, n_qry, qry_stride,
     # sketch_size, common, denom, stream
     "fpmash_walk": [_p, _p, _i64, _i64, _p, _p, _i64, _i64, _i32, _p, _p, _p],
+    # the same arguments as fpmash_walk, over lists sorted ascending
+    "fpmash_compare": [_p, _p, _i64, _i64, _p, _p, _i64, _i64, _i32, _p, _p, _p],
     # flat, n_flat, starts, lengths, n_windows, base, threshold, comb, max_len,
     # words, n_words, ok, stream
     "fpmash_factor_words": [_p, _i64, _p, _p, _i64, _i32, _i32, _i32, _i32, _p, _i32, _p, _p],

@@ -38,8 +38,7 @@ _PAD32 = 0xFFFFFFFF
 def _distinct(x: torch.Tensor):
     """Distinct values of ``x`` (``int64`` u64 bits) ascending as unsigned,
     with their counts; the pad value is dropped."""
-    vals, counts = torch.unique(x ^ _SIGN, sorted=True, return_counts=True)
-    vals = vals ^ _SIGN
+    vals, counts = distinct_counts(x)
     real = vals != -1
     return vals[real], counts[real]
 
@@ -119,6 +118,22 @@ def bottom_k_threshold(hashes: torch.Tensor, valid: torch.Tensor, *, s: int, min
     lo, hi = split_planes(torch.where(valid, hashes, -1))
     return bottom_k_threshold_planes(lo, hi, valid, s=s, min_cov=min_cov, boost=boost,
                                      need_counts=need_counts)
+
+
+def distinct_counts(hashes: torch.Tensor):
+    """Every distinct value of a pool (``int64[N]`` holding u64 bits),
+    ascending as unsigned, with its multiplicity: ``(values int64[D],
+    counts int64[D])`` on the pool's device.
+
+    Counterpart of ``distinct_counts_planes`` (``fpmash_tpu/ops/bottomk.py:558``),
+    the query side of ``screen``: one ``torch.unique`` of the sign-flipped
+    pool (a radix sort on the card) replaces its sort, run-length pass and
+    second sort, so counts and positions are ``int64`` and cannot wrap.
+    No value is a pad here: the caller passes only valid hashes, and every
+    one counts, as in ``np.unique``.
+    """
+    vals, counts = torch.unique(hashes ^ _SIGN, sorted=True, return_counts=True)
+    return vals ^ _SIGN, counts
 
 
 def bottom_k_host(hashes, s: int, min_cov: int = 1):

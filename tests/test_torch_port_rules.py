@@ -56,6 +56,24 @@ def test_no_module_of_the_port_loads_jax():
     assert _new_jax_modules(walk) == []
 
 
+@pytest.mark.parametrize("module", [
+    "fpmash_tpu_torch.ops.compare", "fpmash_tpu_torch.ops.compare_cuda",
+    "fpmash_tpu_torch.commands.triangle_cmd", "fpmash_tpu_torch.commands.screen_cmd",
+    "fpmash_tpu_torch.utils.codon",
+])
+def test_slice4_module_loads_no_jax(module):
+    assert _new_jax_modules(f"import {module}") == []
+
+
+@pytest.mark.parametrize("verb", ["triangle", "screen"])
+def test_comparison_verbs_default_to_cuda(monkeypatch, golden_dir, verb):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    msh = str(golden_dir / "mash_ref" / "genome1.fna.msh")
+    argv = [msh] if verb == "triangle" else [msh, str(golden_dir / "new_data" / "reads1.fastq")]
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        port_main([verb, *argv])
+
+
 def test_cuda_device_without_a_card_raises(monkeypatch, golden_dir, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):
