@@ -15,16 +15,26 @@ classic k-mer MinHash workflow at E. coli scale (three 5 Mbase genomes and a
 ``sketch -k 16``, ``dist``, ``screen``); and BASELINE config 4, all-pairs
 distance over 10 000 sketches of s = 1000 (the sorted comparison K9 over
 10^8 pairs, held pair for pair against the walk K2; ``dist`` of 10 000 x
-100 sketches, ``triangle`` and ``triangle -fp`` over 1 000).  Every phase
-passes or raises; nothing is caught.
+100 sketches, ``triangle`` and ``triangle -fp`` over 1 000).  The five
+kernels that the JAX package keeps unrouted run through the entry points of
+the JAX functions they replace, at those paths' shapes and on their data:
+K13 (``fingerprint_hashes_fused(variant="inline")``) on the CFL path's
+512 000 windows as rows, under byte4 and dna16, against K1; and on the
+classic path's 16 Mi-position chunk of g1 (k = 21, s = 1000) K11
+(``canonical_murmur``) against K7's hashes, K12 (``kmer_hashes_fused_planes``,
+wrapping and not) against K7's planes, K10 (``kmer_hashes_packed_topk_planes``)
+against K5's survivors, and K15 (``row_sort_planes``) on K6's masked planes
+against ``torch.sort``.  So all fifteen kernels are held against their plain
+versions.  Every phase passes or raises; nothing is caught.
 
 The last three lines of standard output are the kernels' JSON record
 (launch counts from the main paths, for the Duval base of
-``factor_words`` from the families' CLI runs; exact-match errors; kernel
-and plain times at one shape, for K9 ``dist``'s with its ``pairs`` and its
-10^8-pair time beside it; each kernel's bound, the least time the card
-could take for its work, from its bytes and integer operations at that
-shape), the
+``factor_words`` from the families' CLI runs, for the five unrouted kernels
+from their phases, which name the ``entry_point``; exact-match errors;
+kernel and plain times at one shape, for K9 ``dist``'s with its ``pairs``
+and its 10^8-pair time beside it; each kernel's bound, the least time the
+card could take for its work, from its bytes and integer operations at that
+shape; for K15 the time of ``torch.sort`` and ``gather``), the
 card's ``name, power.limit`` as ``nvidia-smi`` gives them, and
 ``{"ok": true, "device": {...}}``.  Without a usable card, or outside a
 checkout, it exits nonzero and prints no result.  It never imports JAX.
@@ -75,8 +85,9 @@ def _bound(nbytes: float, ops: float) -> dict:
     """The least time the card could take for a kernel's work: the larger of
     its bytes (each input read once, each output written once) over the
     memory rate and its 32-bit integer operations over the integer rate.
-    No single PyTorch call computes any of these kernels' functions, so
-    ``library_ms`` is None for all of them."""
+    No single PyTorch call computes these kernels' functions but K15's (a
+    row sort, whose phase times ``torch.sort`` and ``gather``), so
+    ``library_ms`` is None here."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / INT_OPS_PER_S * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
@@ -258,21 +269,38 @@ MAIN_PATH_KERNELS = {"CFL": ("fingerprint", "walk"),
 
 def _reset_counts():
     from fpmash_tpu_torch.models import fingerprint
-    from fpmash_tpu_torch.ops import compare_cuda, fused_cuda, icfl_cuda, kmers_cuda, walk_cuda
+    from fpmash_tpu_torch.ops import (
+        compare_cuda,
+        fused_cuda,
+        icfl_cuda,
+        kmers_cuda,
+        sort_cuda,
+        walk_cuda,
+    )
 
     fused_cuda.LAUNCHES = 0
+    fused_cuda.INLINE_LAUNCHES = 0
     walk_cuda.LAUNCHES = 0
     compare_cuda.LAUNCHES = 0
+    sort_cuda.LAUNCHES = 0
     icfl_cuda.LAUNCHES.update(dict.fromkeys(icfl_cuda.LAUNCHES, 0))
     kmers_cuda.LAUNCHES.update(dict.fromkeys(kmers_cuda.LAUNCHES, 0))
     fingerprint.SCALAR_ROWS.update(dict.fromkeys(fingerprint.SCALAR_ROWS, 0))
 
 
 def _launches() -> dict:
-    from fpmash_tpu_torch.ops import compare_cuda, fused_cuda, icfl_cuda, kmers_cuda, walk_cuda
+    from fpmash_tpu_torch.ops import (
+        compare_cuda,
+        fused_cuda,
+        icfl_cuda,
+        kmers_cuda,
+        sort_cuda,
+        walk_cuda,
+    )
 
-    out = {"fingerprint": fused_cuda.LAUNCHES, "walk": walk_cuda.LAUNCHES,
-           "compare": compare_cuda.LAUNCHES}
+    out = {"fingerprint": fused_cuda.LAUNCHES, "fingerprint_inline": fused_cuda.INLINE_LAUNCHES,
+           "walk": walk_cuda.LAUNCHES, "compare": compare_cuda.LAUNCHES,
+           "row_sort": sort_cuda.LAUNCHES}
     for key, n in icfl_cuda.LAUNCHES.items():
         out["hash_words" if key == "hash_words" else f"factor_words:{key}"] = n
     for key, n in kmers_cuda.LAUNCHES.items():
@@ -1393,6 +1421,226 @@ def phase_config4(dev, rng, work: Path):
     return launches, k9, walls
 
 
+# ---------------------------------------------------------------------- #
+# the JAX package's unrouted kernels, through their own entry points at the
+# main paths' shapes: K13 on the CFL path's windows; K10, K11, K12 and K15
+# on the classic path's chunk
+# ---------------------------------------------------------------------- #
+
+
+def _same(a, b) -> bool:
+    import torch
+
+    return a.shape == b.shape and bool(torch.equal(a, b))
+
+
+def _check_equal(what: str, got, want, upto: int | None = None) -> None:
+    """Raise unless each output of ``got`` equals the one of ``want``
+    exactly (only positions below ``upto``, when given)."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not (_same(g, w) if upto is None else _same(g[:upto], w[:upto])):
+            raise AssertionError(f"{what}: output {i} differs")
+
+
+def phase_k13_main_shapes(dev, seqs_a):
+    """K13 through ``fingerprint_hashes_fused(variant="inline")`` at the CFL
+    main path's shape: a.fasta's 512 000 shift windows of 100 bases as
+    ``[B, 100]`` rows, under byte4 and dna16, with the counts set to 0 just
+    before and read just after.  Under both packs (the reads are pure ACGT)
+    it must equal K1's ``(h1, h2, count)`` of the same windows, its plain
+    version on every row, and the split variant of the same entry point (K1
+    on the rows).  Returns K13's record, timed under byte4."""
+    import torch
+
+    from fpmash_tpu_torch.ops import fused_cuda
+
+    flat, starts, lengths = _main_stream(dev, seqs_a)
+    if int(lengths.max()) > WINDOW or int(lengths.min()) < WINDOW:
+        raise AssertionError("a.fasta's windows are not all 100 bases")
+    rows = flat[starts[:, None] + torch.arange(WINDOW, device=dev)].contiguous()
+    B = rows.shape[0]
+    k1 = fused_cuda.fingerprint_hashes(flat, starts, lengths, 42)
+    _reset_counts()
+    got = {pack: fused_cuda.fingerprint_hashes_fused(rows, lengths, 42, pack, "inline")
+           for pack in fused_cuda.PACKS}
+    launches = _launches()["fingerprint_inline"]
+    if launches < len(fused_cuda.PACKS):
+        raise AssertionError(f"fingerprint_hashes_fused(variant='inline') launched K13 "
+                             f"{launches} times")
+    err = 0.0
+    for pack, g in got.items():
+        _check_equal(f"K13 {pack} vs K1", g, k1)
+        want = fused_cuda.fingerprint_hashes_fused_plain(rows, lengths, 42, pack)
+        _check_equal(f"K13 {pack} vs its plain version", g, want)
+        _check_equal(f"split variant {pack} vs K1",
+                     fused_cuda.fingerprint_hashes_fused(rows, lengths, 42, pack, "split"), k1)
+        err = max(err, _max_abs_err(zip(g, want)))
+    ms = {pack: _time_ms(lambda p=pack: fused_cuda.fingerprint_hashes_fused(
+        rows, lengths, 42, p, "inline"), 50) for pack in fused_cuda.PACKS}
+    rec = {
+        "max_abs_err": err,
+        "ms": ms["byte4"],
+        "plain_ms": _time_ms(lambda: fused_cuda.fingerprint_hashes_fused_plain(
+            rows, lengths, 42, "byte4"), 3),
+        # rows and lengths in, h1, h2 and count out; Duval reads each
+        # character once, then MurmurHash3 of the factor lengths (as K1)
+        **_bound(rows.numel() + B * (4 + 20),
+                 int(lengths.sum()) + _hash_ops(k1[2], B)),
+        "launches": launches,
+    }
+    print(f"main-path shapes: K13 (fingerprint_hashes_fused inline) at {B} rows of {WINDOW} "
+          f"equal to K1, to the split variant and to its plain version under byte4 and dna16; "
+          f"kernel byte4 {ms['byte4']:.4f} ms, dna16 {ms['dna16']:.4f} ms, plain "
+          f"{rec['plain_ms']:.4f} ms; launches {launches}")
+    return rec
+
+
+#: 32-bit operations of one compare-exchange of K15's network: the unsigned
+#: compare and the selects of the key and payload pairs
+SORT_CE_OPS = 5
+
+
+def phase_kmer_variants(dev, work: Path):
+    """K10, K11, K12 and K15 through their entry points at the classic main
+    path's shape, g1.fna's chunk of 16 Mi positions at k = 21 and the s =
+    1000 threshold, with the counts set to 0 just before and read just
+    after: K11 on the chunk's packed windows F and R; K12 on its codes (16
+    Mi = 1 024 blocks of 16 384, so the last windows wrap to the head) and
+    on its first 16 Mi - 5 codes (no wrap); K10 on its codes; K15 on K6's
+    masked planes of it at s = 1000 as ``[4096, 4096]`` (keys the high
+    plane, payload the low: bottom-k's candidate row sort).  K11 must equal
+    K7's hash at every position, K12 K7's planes and validity at every
+    position up to N - k, K10 K5's survivors as a multiset with neither
+    overflowing, K15's keys ``torch.sort``'s; each must equal its plain
+    version at every position or slot.  Returns their records."""
+    import torch
+
+    from fpmash_tpu_torch.models import sketch as port_sketch
+    from fpmash_tpu_torch.ops import kmers
+    from fpmash_tpu_torch.ops import kmers_cuda as kc
+    from fpmash_tpu_torch.ops import sort_cuda
+    from fpmash_tpu_torch.ops.murmur3 import _SIGN
+    from fpmash_tpu_torch.utils.fasta import read_sequences
+
+    k = 21
+    seqs = [r.seq for r in read_sequences(str(work / "classic" / "g1.fna"))]
+    seq, length = port_sketch._direct_chunk(port_sketch._blob(seqs, k), 0, dev)
+    N = seq.numel()
+    codes = torch.from_numpy(kmers._CODES).to(dev)[kmers._fold_case(seq, False).long()]
+    F, R, _ = kmers._pack_windows(torch.nn.functional.pad(codes, (0, k - 1), value=4), N, k)
+    codes = codes.to(torch.int32)
+    short = codes[: N - 5]
+    t_hi = kmers.chunk_threshold(N, k, 1000)[0]
+    mlo, mhi = kc.kmer_hashes_masked_planes(seq, t_hi, length, k=k)
+    keys = mhi.view(-1, sort_cuda.COLS)
+    payload = mlo.view(-1, sort_cuda.COLS)
+
+    _reset_counts()
+    k11 = kc.canonical_murmur(F, R, k=k)
+    k12 = kc.kmer_hashes_fused_planes(codes, k=k)
+    k12_short = kc.kmer_hashes_fused_planes(short, k=k)
+    k10 = kc.kmer_hashes_packed_topk_planes(codes, t_hi, length, k=k)
+    k15 = sort_cuda.row_sort_planes(keys, payload)
+    torch.cuda.synchronize()
+    launches = _launches()
+    need = {"kmer:canonical_murmur": 1, "kmer:codes_planes": 2, "kmer:topk_groups": 1,
+            "row_sort": 1}
+    short_of = {key: launches[key] for key, n in need.items() if launches[key] < n}
+    if short_of:
+        raise AssertionError(f"the entry points did not launch their kernels: {launches}")
+
+    k7 = kc.kmer_hashes_planes(seq, k=k)
+    h7 = kc.join_planes(k7[0], k7[1])
+    out = {}
+
+    if not _same(k11, h7):
+        raise AssertionError("K11 differs from K7's hash on g1's chunk")
+    want = kc.canonical_murmur_plain(F, R, k=k)
+    _check_equal("K11 vs its plain version", (k11,), (want,))
+    out["k11"] = {
+        "max_abs_err": _max_abs_err([(k11, want)]),
+        "ms": _time_ms(lambda: kc.canonical_murmur(F, R, k=k), 20),
+        "plain_ms": _time_ms(lambda: kc.canonical_murmur_plain(F, R, k=k), 3),
+        # F and R in, h1 out; per position the canonical pick, then
+        # MurmurHash3 of the k bytes
+        **_bound(N * (8 + 8 + 8), N * (2 + MURMUR_WORD_OPS * -(-k // 8) + MURMUR_FINAL_OPS)),
+        "launches": launches["kmer:canonical_murmur"],
+    }
+
+    err = 0.0
+    for inp, got in ((codes, k12), (short, k12_short)):
+        _check_equal(f"K12 at {inp.numel()} codes vs K7", got, k7, inp.numel() - k + 1)
+        want = kc.kmer_hashes_fused_planes_plain(inp, k=k)
+        _check_equal(f"K12 at {inp.numel()} codes vs its plain version", got, want)
+        err = max(err, _max_abs_err(zip(got, want)))
+    out["k12"] = {
+        "max_abs_err": err,
+        "ms": _time_ms(lambda: kc.kmer_hashes_fused_planes(codes, k=k), 20),
+        "plain_ms": _time_ms(lambda: kc.kmer_hashes_fused_planes_plain(codes, k=k), 3),
+        # codes in, planes and validity out; per position as K7
+        **_bound(N * (4 + 4 + 4 + 1), N * (10 + MURMUR_WORD_OPS * -(-k // 8) + MURMUR_FINAL_OPS)),
+        "launches": launches["kmer:codes_planes"],
+    }
+
+    want = kc.kmer_hashes_packed_topk_planes_plain(codes, t_hi, length, k=k)
+    _check_equal("K10 vs its plain version", k10, want)
+    if bool(k10[2]) or bool(want[2]):
+        raise AssertionError("K10 overflowed a group on g1's chunk")
+    k5 = kc.kmer_hashes_topk8_planes(seq, t_hi, length, k=k)
+    if bool(k5[2]):
+        raise AssertionError("K5 overflowed a group on g1's chunk")
+
+    def survivors(planes):
+        h = kc.join_planes(planes[0], planes[1])
+        return torch.sort(h[h != -1] ^ _SIGN).values
+
+    kept = survivors(k10)
+    if not _same(kept, survivors(k5)) or kept.numel() < 1000:
+        raise AssertionError(f"K10's {kept.numel()} survivors differ from K5's as a multiset")
+    out["k10"] = {
+        "max_abs_err": _max_abs_err(zip(k10, want)),
+        "ms": _time_ms(lambda: kc.kmer_hashes_packed_topk_planes(codes, t_hi, length, k=k), 20),
+        "plain_ms": _time_ms(lambda: kc.kmer_hashes_packed_topk_planes_plain(
+            codes, t_hi, length, k=k), 3),
+        # codes in, the N / 16 slots and the flag out; per position as K5,
+        # and an insertion into the 8-entry list per survivor (3 operations
+        # an entry)
+        **_bound(N * 4 + k10[0].numel() * 8 + 4,
+                 N * (10 + MURMUR_WORD_OPS * -(-k // 8) + MURMUR_FINAL_OPS)
+                 + 24 * kept.numel()),
+        "launches": launches["kmer:topk_groups"],
+    }
+
+    want = sort_cuda.row_sort_planes_plain(keys, payload)
+    _check_equal("K15 vs its plain version", k15, want)
+
+    def library_sort():
+        order = torch.sort(keys ^ -(1 << 31), dim=1)
+        return order.values ^ -(1 << 31), torch.gather(payload, 1, order.indices)
+
+    if not _same(k15[0], library_sort()[0]):
+        raise AssertionError("K15's keys differ from torch.sort's")
+    C = keys.shape[0]
+    steps = sum(range(1, sort_cuda.COLS.bit_length()))  # 78 for rows of 4 096
+    out["k15"] = {
+        "max_abs_err": _max_abs_err(zip(k15, want)),
+        "ms": _time_ms(lambda: sort_cuda.row_sort_planes(keys, payload), 20),
+        "plain_ms": _time_ms(lambda: sort_cuda.row_sort_planes_plain(keys, payload), 3),
+        # keys and payload in and out once; the network's compare-exchanges
+        **_bound(keys.numel() * 4 * 4, steps * (sort_cuda.COLS // 2) * C * SORT_CE_OPS),
+        "launches": launches["row_sort"],
+    }
+    out["k15"]["library_ms"] = _time_ms(library_sort, 20)
+    print(f"main-path shapes: g1's chunk of {N} positions, k = {k}: K11 equals K7's hash, K12 "
+          f"K7's planes to N - k (at {N} codes, wrapping, and {short.numel()}), K10 K5's "
+          f"{kept.numel()} survivors, K15's keys torch.sort's; each equals its plain version; "
+          + "; ".join(f"{name.upper()} kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms"
+                      for name, t in out.items())
+          + f"; torch.sort + gather {out['k15']['library_ms']:.4f} ms; launches "
+          f"{ {key: launches[key] for key in need} }")
+    return out["k10"], out["k11"], out["k12"], out["k15"]
+
+
 def main() -> int:
     import torch
 
@@ -1430,6 +1678,7 @@ def main() -> int:
     family_launches = phase_families_golden(work)
     launches, seqs_a = phase_main_path(dev, rng, work, "CFL")
     k1, k2 = phase_main_shapes(dev, work, seqs_a)
+    k13 = phase_k13_main_shapes(dev, seqs_a)
     icfl_launches, seqs_i = phase_main_path(dev, rng, work, "ICFL_COMB")
     k3, k4, k14 = phase_icfl_main_shapes(dev, work, seqs_i)
     k1["max_abs_err"] = max(k1["max_abs_err"], err1)
@@ -1444,6 +1693,7 @@ def main() -> int:
     k5, k6, k7, k8 = phase_kmer_main_shapes(dev, work)
     for t, key in ((k5, "topk8"), (k6, "masked"), (k7, "planes_k32"), (k8, "planes_k16")):
         t["max_abs_err"] = max(t["max_abs_err"], kmer_errs[key])
+    k10, k11, k12, k15 = phase_kmer_variants(dev, work)
 
     err9 = phase_k9(dev, rng)
     config4_launches, k9, _ = phase_config4(dev, rng, work)
@@ -1482,6 +1732,23 @@ def main() -> int:
          "replaces": "fpmash_tpu/ops/compare_pallas.py:41",
          "launches": config4_launches["compare"], **k9},
     ]
+    # unrouted in the JAX package: launched by their phases through the
+    # entry points of the JAX functions they replace
+    for name, source, replaces, entry, rec in (
+            ("kmer_topk_groups", "kmer_hash.cu", "kmers_pallas.py:619",
+             "ops/kmers_cuda.kmer_hashes_packed_topk_planes", k10),
+            ("canonical_murmur", "kmer_hash.cu", "kmers_pallas.py:142",
+             "ops/kmers_cuda.canonical_murmur", k11),
+            ("kmer_codes_hashes", "kmer_hash.cu", "kmers_pallas.py:225",
+             "ops/kmers_cuda.kmer_hashes_fused[_planes]", k12),
+            ("fingerprint_inline", "fingerprint.cu", "fused_pallas.py:189",
+             "ops/fused_cuda.fingerprint_hashes_fused(variant='inline')", k13),
+            ("row_sort", "row_sort.cu", "sort_pallas.py:28", "ops/sort_cuda.row_sort_planes",
+             k15)):
+        kernels.append({"name": name, "route": "cuda", "source": src + source,
+                        "replaces": "fpmash_tpu/ops/" + replaces,
+                        "entry_point": "fpmash_tpu_torch/" + entry,
+                        "routed_in_reference": False, **rec})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -10,9 +10,12 @@ The package imports ``torch``, ``numpy`` and the standard library, never
 ``jax`` or :mod:`fpmash_tpu` (whose ``__init__`` imports JAX), so it runs
 where JAX is not installed.  Host modules it needs are carried as copies.
 
-Ported so far: the fingerprint main path, ``sketch --direct-fp`` (all ten
-lyn2vec factorization families) and ``sketch -fp`` to ``.msh``, then
-``dist`` over the unsorted hash lists, and the ``fingerprint`` verb.
+Ported so far: the fingerprint path (``sketch --direct-fp`` under all ten
+lyn2vec factorization families, ``sketch -fp``, ``dist -fp``, the
+``fingerprint`` verb), the classic k-mer MinHash path (``sketch``,
+``dist``, ``triangle``, ``screen``), and all fifteen Pallas kernels, the
+five that the JAX package keeps off its routes behind the entry points of
+the JAX functions that reach them.
 """
 
 __version__ = "0.1.0"

@@ -39,8 +39,18 @@ _SIGNATURES = {
     "fpmash_kmer_hashes_masked": [_p, _i64, _i64, _i32, _i32, _u64, _u32, _p, _p, _p],
     # seq, n, length, k, flags, seed, t_hi, clo, chi, overflow, stream
     "fpmash_kmer_hashes_topk8": [_p, _i64, _i64, _i32, _i32, _u64, _u32, _p, _p, _p, _p],
+    # codes, n, length, k, flags, seed, t_hi, clo, chi, overflow, stream
+    "fpmash_kmer_codes_topk": [_p, _i64, _i64, _i32, _i32, _u64, _u32, _p, _p, _p, _p],
+    # codes, n, k, flags, seed, lo, hi, valid, stream
+    "fpmash_kmer_codes_hashes": [_p, _i64, _i32, _i32, _u64, _p, _p, _p, _p],
+    # F, R, n, k, flags, seed, h1, stream
+    "fpmash_canonical_murmur": [_p, _p, _i64, _i32, _i32, _u64, _p, _p],
     # flat, n_flat, starts, lengths, n_windows, seed, h1, h2, count, stream
     "fpmash_fingerprint": [_p, _i64, _p, _p, _i64, _u64, _p, _p, _p, _p],
+    # rows, n_rows, width, lengths, pack, seed, h1, h2, count, stream
+    "fpmash_fingerprint_rows": [_p, _i64, _i32, _p, _i32, _u64, _p, _p, _p, _p],
+    # keys, payload, n_rows, out_keys, out_payload, stream
+    "fpmash_row_sort": [_p, _p, _i64, _p, _p, _p],
     # ref, ref_len, n_ref, ref_stride, qry, qry_len, n_qry, qry_stride,
     # sketch_size, common, denom, stream
     "fpmash_walk": [_p, _p, _i64, _i64, _p, _p, _i64, _i64, _i32, _p, _p, _p],

@@ -9,8 +9,9 @@ chosen k bytes.  Hashes are ``int64`` tensors holding the u64 bits
 
 * :func:`_kmer_hashes_acgt` is the packed formulation for the DNA alphabet
   and ``k <= 32``: each window is one 2-bit big-endian u64 ``F`` and its
-  packed reverse complement ``R``, so the canonical pick is one unsigned
-  min.  It is the plain version of the hash kernels in
+  packed reverse complement ``R`` (:func:`_pack_windows`), so the canonical
+  pick is one unsigned min, then the hash (:func:`_canonical_murmur`).  The
+  two parts are the plain versions of the hash kernels in
   ``ops/kmers_cuda.py``.
 * :func:`_kmer_hashes_generic` takes any alphabet and ``k`` by gathering
   ``[N, k]`` byte windows and hashing them with ``murmur3_bytes_batch``
@@ -82,48 +83,34 @@ def _fold_case(seq: torch.Tensor, preserve_case: bool) -> torch.Tensor:
     return torch.where(lower, seq - 32, seq)
 
 
-def _kmer_hashes_acgt(
-    seq: torch.Tensor,
-    length: int,
-    *,
-    k: int,
-    noncanonical: bool = False,
-    preserve_case: bool = False,
-    seed: int = 42,
-):
-    """``(h1 int64[N], valid bool[N])`` for the DNA alphabet, ``k <= 32``.
-
-    The packed formulation: code ``c`` (A<C<G<T, so integer order is byte
-    order) of every position; ``F`` the big-endian packed window, ``R`` the
-    packed reverse complement (complement ``c ^ 3`` at bit ``2 j``); the
-    canonical key ``min(F, R)`` unless ``noncanonical``; its ASCII bytes
-    ``65 + 2d + 2(d >> 1) + 11(d & d >> 1)`` in little-endian words; then
-    MurmurHash3_x64_128 over ``k`` bytes, keeping h1.
-
-    An invalid byte (not ACGT after case folding) packs as code 0, and
-    positions past the end of ``seq`` as invalid bytes, so every window has
-    a defined hash; ``valid`` marks windows of ``k`` valid bytes that start
-    at or before ``length - k``.
-    """
-    _check_seq(seq)
-    if not 1 <= k <= 32:
-        raise ValueError(f"the packed formulation takes 1 <= k <= 32, got {k}")
-    N = seq.numel()
-    dev = seq.device
-    codes = torch.from_numpy(_CODES).to(dev)[_fold_case(seq, preserve_case).long()]
-    codes = torch.nn.functional.pad(codes, (0, k - 1), value=4)
+def _pack_windows(codes: torch.Tensor, n: int, k: int):
+    """``(F int64[n], R int64[n], valid bool[n])`` of the windows of ``k``
+    codes starting at ``0 .. n - 1`` of a code stream (``codes``, at least
+    ``n + k - 1`` long; a code outside ``0 .. 3`` is invalid and packs as
+    ``code & 3``): ``F`` the big-endian packed window, ``R`` the packed
+    reverse complement (complement ``c ^ 3`` at bit ``2 j``), ``valid``
+    whether all ``k`` codes are valid."""
     c = codes & 3
-    F = torch.zeros(N, dtype=torch.int64, device=dev)
+    ok = (codes >= 0) & (codes < 4)
+    F = torch.zeros(n, dtype=torch.int64, device=codes.device)
     R = torch.zeros_like(F)
-    valid = torch.ones(N, dtype=torch.bool, device=dev)
+    valid = torch.ones(n, dtype=torch.bool, device=codes.device)
     for j in range(k):
-        cj = c[j : j + N]
+        cj = c[j : j + n].to(torch.int64)
         F = (F << 2) | cj
         R = R | ((cj ^ 3) << (2 * j))
-        valid &= codes[j : j + N] < 4
-    P = F if noncanonical else torch.where(ult(R, F), R, F)
+        valid &= ok[j : j + n]
+    return F, R, valid
 
-    # byte j holds the code at bit 2 (k - 1 - j); ASCII A C G T from d
+
+def _canonical_murmur(F: torch.Tensor, R: torch.Tensor, k: int, noncanonical: bool = False,
+                      seed: int = 42) -> torch.Tensor:
+    """h1 (``int64``) of the canonical pick of packed windows ``F`` and ``R``:
+    ``R`` only where ``R < F`` as unsigned 64-bit values (``R`` is not read
+    when ``noncanonical``); the ASCII bytes ``65 + 2d + 2(d >> 1) + 11(d & d
+    >> 1)`` of the code ``d`` at bit ``2 (k - 1 - j)``, so only bits ``[0, 2k)``
+    count, in little-endian words; then MurmurHash3_x64_128 over ``k`` bytes."""
+    P = F if noncanonical else torch.where(ult(R, F), R, F)
     words = [torch.zeros_like(F) for _ in range(2 * (k // 16) + 2)]
     for j in range(k):
         d = (P >> (2 * (k - 1 - j))) & 3
@@ -141,6 +128,37 @@ def _kmer_hashes_acgt(
     if tail > 0:
         h1 = h1 ^ _mix_k1(words[2 * nblocks])
     h1, _ = _finalize(h1, h2, k)
+    return h1
+
+
+def _kmer_hashes_acgt(
+    seq: torch.Tensor,
+    length: int,
+    *,
+    k: int,
+    noncanonical: bool = False,
+    preserve_case: bool = False,
+    seed: int = 42,
+):
+    """``(h1 int64[N], valid bool[N])`` for the DNA alphabet, ``k <= 32``.
+
+    The packed formulation: code ``c`` (A<C<G<T, so integer order is byte
+    order) of every position, packed by :func:`_pack_windows` and hashed by
+    :func:`_canonical_murmur`.
+
+    An invalid byte (not ACGT after case folding) packs as code 0, and
+    positions past the end of ``seq`` as invalid bytes, so every window has
+    a defined hash; ``valid`` marks windows of ``k`` valid bytes that start
+    at or before ``length - k``.
+    """
+    _check_seq(seq)
+    if not 1 <= k <= 32:
+        raise ValueError(f"the packed formulation takes 1 <= k <= 32, got {k}")
+    N = seq.numel()
+    dev = seq.device
+    codes = torch.from_numpy(_CODES).to(dev)[_fold_case(seq, preserve_case).long()]
+    F, R, valid = _pack_windows(torch.nn.functional.pad(codes, (0, k - 1), value=4), N, k)
+    h1 = _canonical_murmur(F, R, k, noncanonical, seed)
     pos = torch.arange(N, device=dev)
     return h1, valid & (pos <= length - k)
 

@@ -1,0 +1,116 @@
+"""Time the routed k-mer kernels (K5-K8) and K1 of checkouts of the port, in turns, on one card.
+
+    python3 kernel_ab.py TREE_A TREE_B [--rounds 2]
+
+Each tree is the root of a checkout (for example the parent commit unpacked
+with ``git archive`` into a directory that ``.gitignore`` lists, and ``.``).
+Every run is a process of its own that imports ``fpmash_tpu_torch`` from
+its tree, builds that tree's kernels into the tree's ``build/`` and times
+each kernel with CUDA events (warm, 20 launches) at the main paths' shapes
+on inputs made from a fixed seed: one chunk of 16 Mi positions holding
+5 000 000 random bases and zero padding, as the direct route ships g1 (K7
+at k = 21, K8 at k = 16, K6 at the s = 10 000 threshold, K5 at the s = 1000
+one), and the 512 000 shift windows of 100 of 256 reads of 2 000 bases
+(K1).  Runs go A B B A in each round, so both trees meet the card in the
+same states.  It prints one JSON line per run, then the card's name and
+power limit as ``nvidia-smi`` gives them.  It needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+CHUNK, BASES, K_WIDE, K_NARROW = 1 << 24, 5_000_000, 21, 16
+N_READS, READ_LEN, WINDOW = 256, 2000, 100
+
+
+def _time_ms(fn, reps: int = 20) -> float:
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def worker(tree: Path) -> dict:
+    """The times of one tree's kernels (run in a process of its own)."""
+    sys.path.insert(0, str(tree))
+    import numpy as np
+    import torch
+
+    from fpmash_tpu_torch.ops import _build, fused_cuda
+    from fpmash_tpu_torch.ops import kmers_cuda as kc
+    from fpmash_tpu_torch.ops.kmers import chunk_threshold
+
+    if not Path(_build.__file__).resolve().is_relative_to(tree.resolve()):
+        raise RuntimeError(f"imported {_build.__file__}, not the tree {tree}")
+    _build.library()
+    dev = torch.device("cuda:0")
+    rng = np.random.default_rng(2026)
+    buf = np.zeros(CHUNK, np.uint8)
+    buf[:BASES] = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, size=BASES)]
+    seq = torch.from_numpy(buf).to(dev)
+    t5 = chunk_threshold(CHUNK, K_WIDE, 1000)[0]
+    t6 = chunk_threshold(CHUNK, K_WIDE, 10_000)[0]
+
+    reads = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, size=(N_READS, READ_LEN))]
+    doubled = np.concatenate([reads, reads[:, : WINDOW - 1]], axis=1)
+    row = READ_LEN + WINDOW - 1
+    starts = (np.arange(N_READS)[:, None] * row + np.arange(READ_LEN)[None, :]).reshape(-1)
+    flat = torch.from_numpy(doubled.reshape(-1).copy()).to(dev)
+    starts = torch.from_numpy(starts.astype(np.int64)).to(dev)
+    lengths = torch.full((starts.numel(),), WINDOW, dtype=torch.int32, device=dev)
+
+    return {
+        "tree": str(tree),
+        "k5_ms": _time_ms(lambda: kc.kmer_hashes_topk8_planes(seq, t5, BASES, k=K_WIDE)),
+        "k6_ms": _time_ms(lambda: kc.kmer_hashes_masked_planes(seq, t6, BASES, k=K_WIDE)),
+        "k7_ms": _time_ms(lambda: kc.kmer_hashes_planes(seq, k=K_WIDE)),
+        "k8_ms": _time_ms(lambda: kc.kmer_hashes_planes(seq, k=K_NARROW)),
+        "k1_ms": _time_ms(lambda: fused_cuda.fingerprint_hashes(flat, starts, lengths, 42)),
+    }
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("trees", nargs="*", type=Path)
+    parser.add_argument("--rounds", type=int, default=2)
+    parser.add_argument("--worker", type=Path, help=argparse.SUPPRESS)
+    args = parser.parse_args()
+    if args.worker is not None:
+        print(json.dumps(worker(args.worker)))
+        return 0
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_ab: torch.cuda.is_available() is False: this needs a CUDA card",
+              file=sys.stderr)
+        return 2
+    if len(args.trees) < 2:
+        parser.error("give at least two trees")
+    order = []
+    for _ in range(args.rounds):
+        order += args.trees + args.trees[::-1]
+    for tree in order:
+        out = subprocess.run([sys.executable, __file__, "--worker", str(tree)],
+                             capture_output=True, text=True, check=True)
+        print(out.stdout.strip().splitlines()[-1], flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True)
+    print(smi.stdout.strip().splitlines()[0])
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,23 +1,24 @@
-"""Port: the fingerprint kernel's wrapper (plain version on the CPU) vs the JAX package.
+"""Port: the fingerprint kernels' wrappers (plain versions on the CPU) vs the JAX package.
 
-The same windows, made with numpy from a seed, go through the Pallas kernel
-``fingerprint_hashes_fused`` in interpret mode (both packings, as
-tests/test_fused_pallas.py runs it), through the JAX split XLA route
-(``cfl_lengths_onehot`` + ``murmur3_u64_batch``), and through
-``fpmash_tpu_torch.ops.fused_cuda.fingerprint_hashes`` on CPU tensors.
-Hashes and counts are integers: every comparison is exact.
+The same windows, made with numpy from a seed, go through the Pallas kernels
+behind ``fingerprint_hashes_fused`` in interpret mode (both packings and
+both variants, as tests/test_fused_pallas.py runs them), through the JAX
+split XLA route (``cfl_lengths_onehot`` + ``murmur3_u64_batch``), and
+through ``fpmash_tpu_torch.ops.fused_cuda``'s ``fingerprint_hashes`` (K1's
+window stream) and ``fingerprint_hashes_fused`` (the JAX signature: K1 or
+K13 by variant) on CPU tensors.  Hashes and counts are integers: every
+comparison is exact.
+
+The tests marked ``gpu`` hold the kernels against their plain version on a
+card; the test functions import JAX and the JAX package only inside the CPU
+tests, so on a machine with a card and no JAX they run with ``python -m
+pytest tests/test_torch_fingerprint.py -m gpu --noconftest``.
 """
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from fpmash_tpu.ops.fused_pallas import fingerprint_hashes_fused
-from fpmash_tpu.ops.lyndon import cfl_lengths_onehot
-from fpmash_tpu.ops.murmur3 import murmur3_u64_batch
-from fpmash_tpu.scalar.lyndon import cfl
-from fpmash_tpu.scalar.murmur3 import murmur3_x64_128
 from fpmash_tpu_torch.ops import fused_cuda
 from fpmash_tpu_torch.scalar.lyndon import cfl as port_cfl
 
@@ -61,6 +62,10 @@ def _port(words, seed=42):
     "pack,alphabet", [("byte4", b"ACGTNacgRY?"), ("dna16", b"ACGT")]
 )
 def test_fingerprint_matches_pallas_interpret(pack, alphabet):
+    import jax.numpy as jnp
+
+    from fpmash_tpu.ops.fused_pallas import fingerprint_hashes_fused
+
     words = _windows(3 if pack == "byte4" else 4, alphabet)
     arr, lens = _rows(words)
     jh1, jh2, jfc = fingerprint_hashes_fused(
@@ -74,6 +79,11 @@ def test_fingerprint_matches_pallas_interpret(pack, alphabet):
 
 def test_fingerprint_matches_split_xla_route():
     """vs the JAX package's XLA formulation the kernel is held against."""
+    import jax.numpy as jnp
+
+    from fpmash_tpu.ops.lyndon import cfl_lengths_onehot
+    from fpmash_tpu.ops.murmur3 import murmur3_u64_batch
+
     words = _windows(5, b"ACGTN")
     arr, lens = _rows(words)
     fac_len, fac_count = cfl_lengths_onehot(jnp.asarray(arr), jnp.asarray(lens))
@@ -88,6 +98,9 @@ def test_fingerprint_matches_split_xla_route():
 def test_fingerprint_matches_scalar_chain(hash_seed):
     """vs Duval + MurmurHash3 one window at a time, and the port's CFL copy
     vs the JAX package's."""
+    from fpmash_tpu.scalar.lyndon import cfl
+    from fpmash_tpu.scalar.murmur3 import murmur3_x64_128
+
     words = _windows(6, b"ACGTN", n=24)
     h1, h2, count = _port(words, hash_seed)
     for i, w in enumerate(words):
@@ -133,3 +146,92 @@ def test_wrapper_dispatch_and_checks():
         fused_cuda.fingerprint_hashes(flat.to("meta"), starts.to("meta"), lens.to("meta"))
     with pytest.raises(ValueError, match="int32"):
         fused_cuda.fingerprint_hashes(flat, starts, lens.to(torch.int64))
+
+
+# ---------------------------------------------------------------------- #
+# the JAX function's own entry point: fingerprint_hashes_fused(variant=...)
+# ---------------------------------------------------------------------- #
+
+
+def _fused_rows(seed):
+    """Rows of bytes with N, lowercase and other bytes, lengths 0, 1 and L."""
+    words = _windows(seed, b"ACGTNacgRY?\x00\xff", n=40)
+    words += [b"N" * L, b"ACGTN" * 20, b"TTTTNAAAAC"]
+    return _rows(words)
+
+
+@pytest.mark.parametrize("pack", ["byte4", "dna16"])
+@pytest.mark.parametrize("variant", ["inline", "split"])
+def test_fused_entry_point_matches_pallas_interpret(pack, variant):
+    """Both variants under both packings, as the JAX function answers;
+    under dna16 every byte but C, G and T compares as an A."""
+    import jax.numpy as jnp
+
+    from fpmash_tpu.ops.fused_pallas import fingerprint_hashes_fused
+
+    arr, lens = _fused_rows(30)
+    assert {0, 1, L} <= set(lens.tolist())
+    jh1, jh2, jfc = fingerprint_hashes_fused(
+        jnp.asarray(arr), jnp.asarray(lens), seed=42, interpret=True, pack=pack, variant=variant
+    )
+    h1, h2, count = fused_cuda.fingerprint_hashes_fused(
+        torch.from_numpy(arr), torch.from_numpy(lens), 42, pack, variant)
+    assert np.array_equal(h1.numpy().view(np.uint64), np.asarray(jh1))
+    assert np.array_equal(h2.numpy().view(np.uint64), np.asarray(jh2))
+    assert np.array_equal(count.numpy(), np.asarray(jfc))
+
+
+def test_fused_entry_point_packs():
+    """dna16 equals byte4 on rows whose bytes are mapped to A C G T first."""
+    arr, lens = _fused_rows(31)
+    dna = np.frombuffer(b"ACGT", np.uint8)[
+        np.select([arr == ord("C"), arr == ord("G"), arr == ord("T")], [1, 2, 3], 0)]
+    a = fused_cuda.fingerprint_hashes_fused(torch.from_numpy(arr), torch.from_numpy(lens),
+                                            pack="dna16")
+    b = fused_cuda.fingerprint_hashes_fused(torch.from_numpy(dna), torch.from_numpy(lens))
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert not torch.equal(a[0], fused_cuda.fingerprint_hashes_fused(
+        torch.from_numpy(arr), torch.from_numpy(lens))[0])
+
+
+def test_fused_entry_point_checks():
+    arr, lens = _fused_rows(32)
+    batch, n = torch.from_numpy(arr), torch.from_numpy(lens)
+    before = (fused_cuda.LAUNCHES, fused_cuda.INLINE_LAUNCHES)
+    fused_cuda.fingerprint_hashes_fused(batch, n, variant="inline")
+    assert (fused_cuda.LAUNCHES, fused_cuda.INLINE_LAUNCHES) == before
+    with pytest.raises(ValueError, match=r"lie in \[0, 100\]"):
+        fused_cuda.fingerprint_hashes_fused(batch, n + 1)
+    with pytest.raises(ValueError, match=r"lie in \[0, 100\]"):
+        fused_cuda.fingerprint_hashes_fused(batch, n - 1)
+    with pytest.raises(ValueError, match="pack"):
+        fused_cuda.fingerprint_hashes_fused(batch, n, pack="dna2")
+    with pytest.raises(ValueError, match="variant"):
+        fused_cuda.fingerprint_hashes_fused(batch, n, variant="fused")
+    with pytest.raises(ValueError, match="uint8"):
+        fused_cuda.fingerprint_hashes_fused(batch.to(torch.int32), n)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        fused_cuda.fingerprint_hashes_fused(batch.to("meta"), n.to("meta"))
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels are built and run only there")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pack", ["byte4", "dna16"])
+def test_fused_entry_point_kernels_match_plain_on_card(cuda_device, pack):
+    arr, lens = _fused_rows(33)
+    batch = torch.from_numpy(arr).to(cuda_device)
+    n = torch.from_numpy(lens).to(cuda_device)
+    want = fused_cuda.fingerprint_hashes_fused_plain(batch, n, 42, pack)
+    for variant in ("inline", "split"):
+        before = (fused_cuda.LAUNCHES, fused_cuda.INLINE_LAUNCHES)
+        got = fused_cuda.fingerprint_hashes_fused(batch, n, 42, pack, variant)
+        step = (0, 1) if variant == "inline" else (1, 0)
+        assert (fused_cuda.LAUNCHES, fused_cuda.INLINE_LAUNCHES) == tuple(
+            b + s for b, s in zip(before, step))
+        assert all(torch.equal(g, w) for g, w in zip(got, want))

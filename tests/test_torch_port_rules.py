@@ -3,7 +3,9 @@
 The tests marked ``gpu`` build the CUDA kernels and hold each one against
 its plain PyTorch version; without a usable card they skip with a reason.
 On a machine with one (JAX need not be installed there), run them with
-``python -m pytest tests/test_torch_port_rules.py -m gpu --noconftest``.
+``python -m pytest tests/test_torch_port_rules.py -m gpu --noconftest``
+(the new kernels' own ``gpu`` tests are in tests/test_torch_kmer_variants.py,
+tests/test_torch_row_sort.py and tests/test_torch_fingerprint.py).
 """
 
 import ast
@@ -63,6 +65,23 @@ def test_no_module_of_the_port_loads_jax():
 ])
 def test_slice4_module_loads_no_jax(module):
     assert _new_jax_modules(f"import {module}") == []
+
+
+_NO_BUILD = """
+import subprocess
+def _refuse(*args, **kwargs):
+    raise AssertionError(f"a process was started while importing: {args}")
+subprocess.Popen = subprocess.run = _refuse
+import fpmash_tpu_torch.ops.sort_cuda, fpmash_tpu_torch.ops.kmers_cuda
+import fpmash_tpu_torch.ops.fused_cuda
+from fpmash_tpu_torch.ops import _build
+assert _build.library.cache_info().currsize == 0, "the kernels' library was loaded"
+"""
+
+
+def test_slice5_wrappers_load_no_jax_and_build_nothing():
+    """``ops/sort_cuda.py`` (K15) and the wrappers extended with K10-K13."""
+    assert _new_jax_modules(_NO_BUILD) == []
 
 
 @pytest.mark.parametrize("verb", ["triangle", "screen"])
