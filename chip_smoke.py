@@ -1131,6 +1131,8 @@ def phase_kmer_main_shapes(dev, work: Path):
 # ---------------------------------------------------------------------- #
 
 U64MAX = 0xFFFFFFFFFFFFFFFF
+#: merged elements K9's warp takes a step (kW = 32 x kE in csrc/compare.cu)
+K9_STEP = 512
 
 
 def _k9_cases(rng):
@@ -1172,6 +1174,29 @@ def _k9_cases(rng):
     ql = rng.integers(0, 301, 41).astype(np.int32)
     rl[:3], ql[:3] = [0, 1, 300], [300, 0, 300]
     cases.append(("repeats 29x41 of 300", ref, rl, qry, ql, (1, 64, 1000)))
+
+    # the edges of K9's step of K9_STEP merged elements: caps one below, at
+    # and one above it, lengths off its multiples, empty lists, Q = 100 (two
+    # query groups of 50)
+    ref, qry = pick(pool, 23, 1200), pick(pool, 100, 1200)
+    qry[0], qry[1] = ref[0], np.sort(np.concatenate([ref[1][:600], fresh[:600]]))
+    rl = rng.integers(0, 1201, 23).astype(np.int32)
+    ql = rng.integers(0, 1201, 100).astype(np.int32)
+    s = K9_STEP
+    rl[:8] = [1200, 1200, 0, s - 1, s, s + 1, 2 * s + 7, 1]
+    ql[:8] = [1200, 1200, s + 1, 0, s - 1, s, 3 * s - 5, 1199]
+    caps = (s - 1, s, s + 1, 2 * s - 1)
+    cases.append(("step edges 23x100 of 1200", ref, rl, qry, ql, caps))
+    # drawn with replacement from 1 500 values, so the union passes the caps
+    wide_small = np.concatenate([rng.integers(0, 1 << 40, 1200, dtype=np.uint64),
+                                 rng.integers(1 << 63, U64MAX, 300, dtype=np.uint64)])
+    ref = np.sort(wide_small[rng.integers(0, 1500, (13, 1100))], axis=1)
+    qry = np.sort(wide_small[rng.integers(0, 1500, (100, 1100))], axis=1)
+    qry[5::7, -2:] = U64MAX
+    rl = rng.integers(0, 1101, 13).astype(np.int32)
+    ql = rng.integers(0, 1101, 100).astype(np.int32)
+    rl[:4], ql[:4] = [0, s - 1, s, s + 1], [s + 1, 0, s, 1100]
+    cases.append(("step edges, repeats 13x100 of 1100", ref, rl, qry, ql, caps))
     return cases
 
 
@@ -1179,8 +1204,10 @@ def phase_k9(dev, rng):
     """K9 against its plain version, exactly, on sorted lists: identical,
     disjoint and 90 %-shared pairs; lengths 0, 1, below and above the cap;
     caps 64, 1 000 and 10 000; rows wider than the shared-memory stage;
-    rows with repeats and a real 2^64 - 1 hash; R and Q not multiples of 8.
-    Returns the largest error."""
+    rows with repeats and a real 2^64 - 1 hash; R and Q not multiples of 8;
+    at the edges of the kernel's step (caps and lengths one below, at and
+    one above ``K9_STEP``, Q = 100), distinct and with repeats.  Returns the
+    largest error."""
     import numpy as np
     import torch
 

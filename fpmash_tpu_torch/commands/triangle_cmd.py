@@ -10,10 +10,10 @@ and output bytes are those of ``python -m fpmash_tpu triangle``;
 
 The whole ``[n, n]`` block is computed in one call on the device and its
 lower triangle read.  The JAX package compares classic pairs with the
-literal walk; here, when every list is strictly increasing and holds no
-hash equal to 2^64 - 1 (which the sorted comparison drops as its pad),
-where the walk and the sorted comparison agree, the block goes through the
-sorted comparison K9, otherwise through the walk K2 over the stored order.  The
+literal walk; here, where the sorted comparison equals the walk
+(``models/distance.k9_equals_walk``; ``common_denom`` routes ``dist`` and
+``triangle`` alike), the block goes through the sorted comparison K9,
+otherwise through the walk K2 over the stored order.  The
 positional block is plain PyTorch on the device, its p-values one
 vectorised ``chisq_sf``.  Phylip output prints no p-value, so none is
 computed for it.
@@ -34,7 +34,6 @@ from fpmash_tpu_torch.commands.common import (
 from fpmash_tpu_torch.device import resolve_device
 from fpmash_tpu_torch.models.distance import (
     PairResult,
-    _all_sorted,
     common_denom,
     pair_distance,
     pair_result,
@@ -42,9 +41,6 @@ from fpmash_tpu_torch.models.distance import (
 from fpmash_tpu_torch.models.sketch import Sketch
 from fpmash_tpu_torch.scalar.stats import chisq_sf, format_g
 from fpmash_tpu_torch.utils.trace import trace
-
-#: the sorted comparison's pad, 2^64 - 1
-_PAD = (1 << 64) - 1
 
 
 def add_parser(sub):
@@ -89,12 +85,7 @@ def _merge_results(sk: Sketch, edge: bool, max_d: float, max_p: float, device):
     """``result(i, j)`` of the merge-join comparison for every pair."""
     p = sk.params
     hashes = [r.hashes for r in sk.references]
-    # K9 equals the walk on strictly increasing lists, the last and largest
-    # hash of each not being the pad
-    sorted_ = _all_sorted(sk, strict=True) and not any(
-        len(h) and int(h[-1]) == _PAD for h in hashes)
-    common, denom = common_denom(hashes, hashes, p.sketch_size, sorted_=sorted_,
-                                 device=device)
+    common, denom = common_denom(hashes, hashes, p.sketch_size, device=device)
 
     def result(i, j):
         c, d = int(common[i, j]), int(denom[i, j])

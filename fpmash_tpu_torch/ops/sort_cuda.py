@@ -54,6 +54,8 @@ def row_sort_planes(keys: torch.Tensor, payload: torch.Tensor):
     out_payload = torch.empty_like(payload)
     if keys.shape[0] == 0:
         return out_keys, out_payload
+    # the kernel moves 16-byte vectors: a view that starts inside a row is copied
+    keys, payload = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (keys, payload))
     with torch.cuda.device(dev):
         code = library().fpmash_row_sort(
             keys.data_ptr(), payload.data_ptr(), keys.shape[0], out_keys.data_ptr(),

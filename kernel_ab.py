@@ -1,4 +1,4 @@
-"""Time the routed k-mer kernels (K5-K8) and K1 of checkouts of the port, in turns, on one card.
+"""Time kernels of checkouts of the port, in turns, on one card: K1, K5-K8, K9 and K15.
 
     python3 kernel_ab.py TREE_A TREE_B [--rounds 2]
 
@@ -6,14 +6,23 @@ Each tree is the root of a checkout (for example the parent commit unpacked
 with ``git archive`` into a directory that ``.gitignore`` lists, and ``.``).
 Every run is a process of its own that imports ``fpmash_tpu_torch`` from
 its tree, builds that tree's kernels into the tree's ``build/`` and times
-each kernel with CUDA events (warm, 20 launches) at the main paths' shapes
-on inputs made from a fixed seed: one chunk of 16 Mi positions holding
-5 000 000 random bases and zero padding, as the direct route ships g1 (K7
-at k = 21, K8 at k = 16, K6 at the s = 10 000 threshold, K5 at the s = 1000
-one), and the 512 000 shift windows of 100 of 256 reads of 2 000 bases
-(K1).  Runs go A B B A in each round, so both trees meet the card in the
-same states.  It prints one JSON line per run, then the card's name and
-power limit as ``nvidia-smi`` gives them.  It needs a CUDA card.
+each kernel with CUDA events (warm, 20 launches; 3 for the all-pairs tile)
+at the main paths' shapes on inputs made from a fixed seed:
+
+* one chunk of 16 Mi positions holding 5 000 000 random bases and zero
+  padding, as the direct route ships g1: K7 at k = 21, K8 at k = 16, K6 at
+  the s = 10 000 threshold, K5 at the s = 1000 one, and K15 on K6's masked
+  planes of it at s = 1000 as ``[4096, 4096]``, with ``torch.sort`` +
+  ``gather`` of the same planes beside it (``sort_library_ms``);
+* the 512 000 shift windows of 100 of 256 reads of 2 000 bases (K1);
+* BASELINE config 4's 10 100 sketches of s = 1000, made as
+  ``chip_smoke._cluster_lists`` makes them: K9 at ``dist``'s 10 000 x 100
+  and at one all-pairs tile (the first ``ops/compare._TILE_PAIRS // 10 000``
+  rows against all 10 000).
+
+Runs go A B B A in each round, so both trees meet the card in the same
+states.  It prints one JSON line per run, then the card's name and power
+limit as ``nvidia-smi`` gives them.  It needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -25,6 +34,7 @@ import sys
 from pathlib import Path
 
 CHUNK, BASES, K_WIDE, K_NARROW = 1 << 24, 5_000_000, 21, 16
+ROOT = Path(__file__).resolve().parent
 N_READS, READ_LEN, WINDOW = 256, 2000, 100
 
 
@@ -45,13 +55,18 @@ def _time_ms(fn, reps: int = 20) -> float:
 
 def worker(tree: Path) -> dict:
     """The times of one tree's kernels (run in a process of its own)."""
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import BASE_SET, N_ALL, N_QRY, SKETCH, _cluster_lists
+
     sys.path.insert(0, str(tree))
     import numpy as np
     import torch
 
-    from fpmash_tpu_torch.ops import _build, fused_cuda
+    from fpmash_tpu_torch.ops import _build, compare_cuda, fused_cuda, sort_cuda
     from fpmash_tpu_torch.ops import kmers_cuda as kc
+    from fpmash_tpu_torch.ops.compare import _TILE_PAIRS
     from fpmash_tpu_torch.ops.kmers import chunk_threshold
+    from fpmash_tpu_torch.ops.walk import pad_lists
 
     if not Path(_build.__file__).resolve().is_relative_to(tree.resolve()):
         raise RuntimeError(f"imported {_build.__file__}, not the tree {tree}")
@@ -72,8 +87,29 @@ def worker(tree: Path) -> dict:
     starts = torch.from_numpy(starts.astype(np.int64)).to(dev)
     lengths = torch.full((starts.numel(),), WINDOW, dtype=torch.int32, device=dev)
 
+    mlo, mhi = kc.kmer_hashes_masked_planes(seq, chunk_threshold(CHUNK, K_WIDE, 1000)[0], BASES,
+                                            k=K_WIDE)
+    keys, payload = mhi.view(-1, sort_cuda.COLS), mlo.view(-1, sort_cuda.COLS)
+
+    def library_sort():
+        order = torch.sort(keys ^ -(1 << 31), dim=1)
+        return order.values ^ -(1 << 31), torch.gather(payload, 1, order.indices)
+
+    lists = _cluster_lists(np.random.default_rng(2026), dev, N_ALL + N_QRY, BASE_SET, SKETCH,
+                           sort=True)
+    ref, ref_len = pad_lists(lists[:N_ALL], dev)
+    qry, qry_len = pad_lists(lists[N_ALL:], dev)
+    rows = _TILE_PAIRS // N_ALL
+
     return {
         "tree": str(tree),
+        "k9_dist_ms": _time_ms(lambda: compare_cuda.pairwise_common_denom(
+            ref, ref_len, qry, qry_len, SKETCH)),
+        "k9_tile_ms": _time_ms(lambda: compare_cuda.pairwise_common_denom(
+            ref[:rows], ref_len[:rows], ref, ref_len, SKETCH), reps=3),
+        "k9_tile_pairs": rows * N_ALL,
+        "k15_ms": _time_ms(lambda: sort_cuda.row_sort_planes(keys, payload)),
+        "sort_library_ms": _time_ms(library_sort),
         "k5_ms": _time_ms(lambda: kc.kmer_hashes_topk8_planes(seq, t5, BASES, k=K_WIDE)),
         "k6_ms": _time_ms(lambda: kc.kmer_hashes_masked_planes(seq, t6, BASES, k=K_WIDE)),
         "k7_ms": _time_ms(lambda: kc.kmer_hashes_planes(seq, k=K_WIDE)),

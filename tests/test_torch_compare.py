@@ -6,13 +6,17 @@ its Pallas kernel in interpret mode (as ``tests/test_compare_pallas.py`` runs
 it) and the port's plain version of K9: distinct lists with pads, lists with
 repeated hashes, a real ``2^64 - 1`` hash, empty lists, caps below and above
 the list widths.  ``dist`` on sorted lists with repeats is pinned against the
-JAX package's device route, and the positional comparison of ``triangle
--fp`` against ``pairwise_positional``.  Counts are integers: exact.
+literal walk and the JAX package's host route (the port takes K9 only where
+it equals the walk, as ``triangle`` does), and the positional comparison of
+``triangle -fp`` against ``pairwise_positional``.  Counts are integers: exact.
 
 JAX is imported inside the CPU tests only, so that the ``gpu`` tests (K9
 against its plain version on the card) run where JAX is not installed:
 ``python -m pytest tests/test_torch_compare.py -m gpu --noconftest``.
 """
+
+import contextlib
+import io
 
 import numpy as np
 import pytest
@@ -151,39 +155,121 @@ def _sketches(rng, n, S, sorted_=True):
     return params, refs()
 
 
-@pytest.mark.parametrize("sorted_", [True, False], ids=["sorted-repeats", "unsorted"])
-def test_dist_matches_jax_device_route(monkeypatch, sorted_):
-    """8 x 8 lists with repeated hashes: the port's ``all_pairs_dist`` equals
-    ``fpmash_tpu.models.distance.all_pairs_dist(backend="jax")`` (K9's
-    semantics on sorted lists, the walk's otherwise), and takes the
-    matching kernel's route."""
-    import fpmash_tpu.models.distance as jax_distance
+def _jax_sketch(params, refs):
     import fpmash_tpu.models.sketch as jax_sketch
 
-    rng = np.random.default_rng(8)
-    p_ref, r_ref = _sketches(rng, 8, 40, sorted_)
-    p_qry, r_qry = _sketches(rng, 8, 30, sorted_)
+    sk = jax_sketch.Sketch(jax_sketch.SketchParams(**params))
+    sk.references = [jax_sketch.Reference(**r) for r in refs]
+    return sk
 
-    def jax_sk(params, refs):
-        sk = jax_sketch.Sketch(jax_sketch.SketchParams(**params))
-        sk.references = [jax_sketch.Reference(**r) for r in refs]
-        return sk
 
+def _k9_calls(monkeypatch):
     calls = []
     orig = compare_cuda.pairwise_common_denom
     monkeypatch.setattr(compare_cuda, "pairwise_common_denom",
                         lambda *a: calls.append(1) or orig(*a))
+    return calls
+
+
+@pytest.mark.parametrize("sorted_", [True, False], ids=["sorted-repeats", "unsorted"])
+def test_dist_matches_jax_device_route(monkeypatch, sorted_):
+    """8 x 8 lists with repeated hashes (64 pairs, where the JAX package
+    turns to its device route): the port's ``all_pairs_dist`` gives the
+    literal walk's counts on every pair and takes the walk K2, not K9,
+    whose multiset counts differ on repeats; at 7 x 8 it equals
+    ``fpmash_tpu.models.distance.all_pairs_dist(backend="auto")`` (the JAX
+    host walk).  On unsorted lists both JAX routes walk, and so does the
+    port."""
+    import fpmash_tpu.models.distance as jax_distance
+
+    rng = np.random.default_rng(8)
+    p_ref, r_ref = _sketches(rng, 8, 40, sorted_)
+    p_qry, r_qry = _sketches(rng, 8, 30, sorted_)
+    calls = _k9_calls(monkeypatch)
     port = list(port_distance.all_pairs_dist(
         sketch_from_arrays(p_ref, r_ref), sketch_from_arrays(p_qry, r_qry), device=CPU))
-    assert bool(calls) == sorted_
-    jax = list(jax_distance.all_pairs_dist(jax_sk(p_ref, r_ref), jax_sk(p_qry, r_qry),
-                                           backend="jax"))
-    assert [(ri, qi, r.__dict__) for ri, qi, r in port] == \
+    assert not calls
+    walk = [port_distance.compare_sketches(r["hashes"], q["hashes"], r["length"], q["length"],
+                                           30, 21, 4.0**21)
+            for q in r_qry for r in r_ref]
+    assert [r.__dict__ for _, _, r in port] == [w.__dict__ for w in walk]
+    if sorted_:  # on repeats K9 would have printed other counts
+        k9 = port_compare.all_pairs_common_denom([r["hashes"] for r in r_ref],
+                                                 [q["hashes"] for q in r_qry], 30, device=CPU)
+        assert any((w.numer, w.denom) != (int(k9[0][ri, qi]), int(k9[1][ri, qi]))
+                   for (ri, qi, _), w in zip(port, walk))
+    else:
+        jax = list(jax_distance.all_pairs_dist(_jax_sketch(p_ref, r_ref),
+                                               _jax_sketch(p_qry, r_qry), backend="jax"))
+        assert [(ri, qi, r.__dict__) for ri, qi, r in port] == \
+               [(ri, qi, r.__dict__) for ri, qi, r in jax]
+
+    small = list(port_distance.all_pairs_dist(
+        sketch_from_arrays(p_ref, r_ref[:7]), sketch_from_arrays(p_qry, r_qry), device=CPU))
+    jax = list(jax_distance.all_pairs_dist(_jax_sketch(p_ref, r_ref[:7]),
+                                           _jax_sketch(p_qry, r_qry), backend="auto"))
+    assert [(ri, qi, r.__dict__) for ri, qi, r in small] == \
            [(ri, qi, r.__dict__) for ri, qi, r in jax]
-    if sorted_:  # the lists repeat hashes: the walk would give other counts
-        walk = [port_distance.compare_sketches(r["hashes"], q["hashes"], 1, 1, 30, 21, 4.0**21)
-                for q in r_qry for r in r_ref]
-        assert any((w.numer, w.denom) != (r.numer, r.denom) for w, (_, _, r) in zip(walk, port))
+
+
+def test_dist_fp_on_poly_a_reads_matches_the_walk(tmp_path, capsys):
+    """Poly-A reads: every window has the same fingerprint, so each list is
+    one hash repeated.  ``dist -fp`` prints the walk's 130/150 and 120/130,
+    the JAX CLI's lines, and never common above denom."""
+    from fpmash_tpu.cli import main as jax_main
+    from fpmash_tpu_torch.cli import main as port_main
+
+    (tmp_path / "a.fasta").write_text(f">r1\n{'A' * 150}\n>r2\n{'A' * 120}\n")
+    (tmp_path / "b.fasta").write_text(f">q1\n{'A' * 130}\n")
+    for tag in ("a", "b"):
+        assert port_main(["sketch", "--direct-fp", str(tmp_path / f"{tag}.fasta"),
+                          "-o", str(tmp_path / tag.upper()), "--device", "cpu"]) == 0
+    args = ["dist", "-fp", str(tmp_path / "A.msh"), str(tmp_path / "B.msh")]
+    capsys.readouterr()
+    assert port_main([*args, "--device", "cpu"]) == 0
+    port = capsys.readouterr().out
+    assert jax_main(args) == 0
+    assert port == capsys.readouterr().out
+    assert [line.split("\t")[4] for line in port.splitlines()] == ["130/150", "120/130"]
+    assert all(float(line.split("\t")[2]) >= 0 for line in port.splitlines())
+
+
+def _route_lists(kind):
+    """Hash lists for ``kind``: strictly increasing (K9), one with a
+    repeated hash, or one ending in 2^64 - 1 (K9's pad)."""
+    rng = np.random.default_rng(12)
+    lists = [np.sort(rng.choice(10**6, 50, replace=False)).astype(np.uint64) for _ in range(5)]
+    if kind == "repeat":
+        lists[2] = np.sort(np.concatenate([lists[2][:-1], lists[2][:1]]))
+    elif kind == "pad":
+        lists[3][-1] = U64MAX
+    return lists
+
+
+@pytest.mark.parametrize("kind", ["strict", "repeat", "pad"])
+def test_dist_and_triangle_route_alike(tmp_path, monkeypatch, kind):
+    """``dist`` and ``triangle`` take K9 on the same lists, both through
+    ``k9_equals_walk``, and print the walk's counts."""
+    from fpmash_tpu_torch.cli import main as port_main
+
+    lists = _route_lists(kind)
+    refs = [dict(name=f"s{i}", comment="", length=5000, hashes=h) for i, h in enumerate(lists)]
+    sketch_from_arrays(dict(kmer_size=21, sketch_size=1000), refs).write_msh(
+        str(tmp_path / "s.msh"))
+    assert port_distance.k9_equals_walk(lists) == (kind == "strict")
+    calls = _k9_calls(monkeypatch)
+    with contextlib.redirect_stdout(io.StringIO()) as dist_out:
+        assert port_main(["dist", str(tmp_path / "s.msh"), str(tmp_path / "s.msh"),
+                          "--device", "cpu"]) == 0
+    dist_k9 = len(calls)
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert port_main(["triangle", str(tmp_path / "s.msh"), "--device", "cpu"]) == 0
+    assert dist_k9 == len(calls) - dist_k9 == int(kind == "strict")
+    for line in dist_out.getvalue().splitlines():
+        r, q, *_, counts = line.split("\t")
+        res = port_distance.compare_sketches(lists[int(r[1:])], lists[int(q[1:])], 1, 1, 1000,
+                                             21, 4.0**21)
+        assert counts == f"{res.numer}/{res.denom}"
 
 
 def test_positional_matches_jax():
@@ -284,3 +370,32 @@ def test_k9_rows_wider_than_the_stage_on_card(cuda_device):
         got = compare_cuda.pairwise_common_denom(*args, cap)
         want = port_compare.pairwise_common_denom(*args, cap)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+#: merged elements the kernel's warp takes a step (kW in csrc/compare.cu)
+K9_STEP = 512
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", ["distinct", "repeats"])
+def test_k9_step_edges_on_card(cuda_device, rows):
+    """Caps one below, at and one above the kernel's step, lengths off its
+    multiples, empty lists on either side, and Q = 100 queries (two query
+    groups of 50 a reference)."""
+    rng = np.random.default_rng(46)
+    s = K9_STEP
+    if rows == "distinct":
+        ref, rl = _distinct_rows(rng, 11, 1200, 0, 1200)
+        qry, ql = _distinct_rows(rng, 100, 1200, 0, 1200)
+        qry[3], ql[3] = ref[5], rl[5]
+    else:
+        ref, rl = _repeat_rows(rng, 11, 1200)
+        qry, ql = _repeat_rows(rng, 100, 1200)
+    rl[:6] = [0, s - 1, s, s + 1, 2 * s + 3, 1200]
+    ql[:6] = [s + 1, 0, s - 1, s, 1200, 3 * s - 7]
+    args = _args(ref, rl, qry, ql, cuda_device)
+    for cap in (s - 1, s, s + 1, 2 * s + 1):
+        got = compare_cuda.pairwise_common_denom(*args, cap)
+        want = port_compare.pairwise_common_denom(*args, cap)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert int(want[0].sum()) > 0

@@ -22,17 +22,35 @@ import torch
 from fpmash_tpu_torch.ops import sort_cuda
 
 
+KEYSETS = ["small", "wide", "equal", "few", "reversed", "high"]
+#: key sets whose rows hold equal keys in an order the network does not keep
+TIED = {"small", "wide", "few", "high"}
+
+
 def _planes(rng, rows, keyset):
-    """Keys drawn from 50 values (heavy ties): small ones, as in
-    tests/test_kmers.py, or spread over the u32 range with the high bit and
-    0xFFFFFFFF; payloads random u32."""
-    if keyset == "small":
-        values = np.arange(50, dtype=np.uint32)
+    """Keys of one of ``KEYSETS``: drawn from 50 values (heavy ties), small
+    ones as in tests/test_kmers.py, or spread over the u32 range with the
+    high bit and 0xFFFFFFFF; all one value; drawn from 3 values; each row
+    strictly decreasing; drawn from 50 values that all have the high bit
+    set.  Payloads random u32."""
+    shape = (rows, sort_cuda.COLS)
+    if keyset == "equal":
+        keys = np.full(shape, 0x9E3779B9, np.uint32)
+    elif keyset == "reversed":
+        start = rng.integers(sort_cuda.COLS, 2**32, size=(rows, 1), dtype=np.uint64)
+        keys = (start - np.arange(sort_cuda.COLS, dtype=np.uint64)).astype(np.uint32)
     else:
-        values = rng.integers(0, 2**32, size=50, dtype=np.uint64).astype(np.uint32)
-        values[:3] = [0, 2**31, 2**32 - 1]
-    keys = values[rng.integers(0, 50, size=(rows, sort_cuda.COLS))]
-    pay = rng.integers(0, 2**32, size=(rows, sort_cuda.COLS), dtype=np.uint64).astype(np.uint32)
+        n = 3 if keyset == "few" else 50
+        if keyset == "small":
+            values = np.arange(n, dtype=np.uint32)
+        else:
+            values = rng.integers(0, 2**32, size=n, dtype=np.uint64).astype(np.uint32)
+        if keyset == "wide":
+            values[:3] = [0, 2**31, 2**32 - 1]
+        if keyset == "high":
+            values |= np.uint32(1 << 31)
+        keys = values[rng.integers(0, n, size=shape)]
+    pay = rng.integers(0, 2**32, size=shape, dtype=np.uint64).astype(np.uint32)
     return keys, pay
 
 
@@ -40,14 +58,14 @@ def _torch(a):
     return torch.from_numpy(np.ascontiguousarray(a).view(np.int32))
 
 
-@pytest.mark.parametrize("keyset", ["small", "wide"])
+@pytest.mark.parametrize("keyset", KEYSETS)
 def test_row_sort_plain_matches_pallas_and_lax_sort(keyset):
     import jax
     import jax.numpy as jnp
 
     from fpmash_tpu.ops.sort_pallas import row_sort_planes_pallas
 
-    rng = np.random.default_rng(13 if keyset == "small" else 14)
+    rng = np.random.default_rng(13 + KEYSETS.index(keyset))
     keys, pay = _planes(rng, 8, keyset)
     got_k, got_p = sort_cuda.row_sort_planes(_torch(keys), _torch(pay))
     got_k = got_k.numpy().view(np.uint32)
@@ -62,9 +80,11 @@ def test_row_sort_plain_matches_pallas_and_lax_sort(keyset):
     assert np.array_equal(got_k, np.sort(keys, axis=1))
     for r in range(len(keys)):
         assert sorted(zip(got_k[r], got_p[r])) == sorted(zip(wk[r], wp[r]))
-    # ties do not keep their input order: the payload order is the network's own
-    assert not all(np.array_equal(got_p[r], pay[r][np.argsort(keys[r], kind="stable")])
-                   for r in range(len(keys)))
+    stable = all(np.array_equal(got_p[r], pay[r][np.argsort(keys[r], kind="stable")])
+                 for r in range(len(keys)))
+    # ties do not keep their input order: the payload order is the network's
+    # own (rows of one key never swap, rows of distinct keys have no ties)
+    assert stable == (keyset not in TIED)
 
 
 def test_row_sort_checks_and_count():
@@ -94,7 +114,7 @@ def cuda_device():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("keyset", ["small", "wide"])
+@pytest.mark.parametrize("keyset", KEYSETS)
 def test_row_sort_kernel_matches_plain_on_card(cuda_device, keyset):
     rng = np.random.default_rng(15)
     keys, pay = _planes(rng, 264, keyset)
