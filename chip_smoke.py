@@ -25,7 +25,9 @@ classic path's 16 Mi-position chunk of g1 (k = 21, s = 1000) K11
 wrapping and not) against K7's planes, K10 (``kmer_hashes_packed_topk_planes``)
 against K5's survivors, and K15 (``row_sort_planes``) on K6's masked planes
 against ``torch.sort``.  So all fifteen kernels are held against their plain
-versions.  Every phase passes or raises; nothing is caught.
+versions; the k-mer kernels (K5-K8, K10-K12) also on a tile-edge set
+(lengths on and one off the kernels' tiles, invalid codes on the tile
+edges, a misaligned view).  Every phase passes or raises; nothing is caught.
 
 The last three lines of standard output are the kernels' JSON record
 (launch counts from the main paths, for the Duval base of
@@ -748,12 +750,81 @@ def _kmer_compare(seq, k: int, cuts, **flags) -> dict:
     return errs
 
 
+#: positions a block of the k-mer kernels stages and hashes (csrc/kmer_hash.cu kTile)
+KMER_TILE = 4096
+
+
+def _tile_edge_dna(rng, n: int):
+    """:func:`_mixed_dna` with N on both sides of every tile edge, 31 past it
+    (the halo's last position) and at the end."""
+    seq = _mixed_dna(rng, n)
+    for edge in range(KMER_TILE, n + 1, KMER_TILE):
+        for d in (-1, 0, 31):
+            if 0 <= edge + d < n:
+                seq[edge + d] = ord("N")
+    seq[-1] = ord("n")
+    return seq
+
+
+def _kmer_tile_edges(dev, rng) -> dict:
+    """The tile-edge set: K5-K8 on lengths of 4 tiles and one off them (and
+    a view that is not 16-byte aligned) at k = 1, 16, 17, 21 and 32; K12 on
+    their codes with codes 5-7 on the tile edges (4 tiles = one block of the
+    TPU layout, so its last windows wrap to the head); K10 on the same codes
+    at k = 17, 21, 32; K11 on their packed windows.  Returns the errors by
+    ``LAUNCHES`` key; raises on any difference."""
+    import torch
+
+    from fpmash_tpu_torch.ops import kmers
+    from fpmash_tpu_torch.ops import kmers_cuda as kc
+    from fpmash_tpu_torch.ops.kmers import chunk_threshold
+
+    errs = {}
+
+    def note(key, got, want, what):
+        torch.cuda.synchronize()
+        _check_equal(what, got, want)
+        errs[key] = max(errs.get(key, 0.0), _max_abs_err(zip(got, want)))
+
+    for n in (4 * KMER_TILE - 1, 4 * KMER_TILE, 4 * KMER_TILE + 1, KMER_TILE + 5):
+        full = torch.from_numpy(_tile_edge_dna(rng, n + 3)).to(dev)
+        seq = full[3:] if n == KMER_TILE + 5 else full[:n]  # the last: misaligned
+        codes = torch.from_numpy(kmers._CODES).to(dev)[kmers._fold_case(seq, False).long()]
+        codes = codes.to(torch.int32)
+        if n == KMER_TILE + 5:
+            codes = torch.cat([codes[:1], codes])[1:]
+        for edge in range(KMER_TILE, n, KMER_TILE):
+            codes[edge - 1], codes[edge] = 5, 7
+        codes[-1] = 6
+        for k, flags in ((1, {}), (16, {}), (17, {}), (21, dict(preserve_case=True)), (21, {}),
+                         (32, dict(noncanonical=True))):
+            cuts = ((chunk_threshold(n, k, 1000)[0], n), (0x08000000, n - 777),
+                    (0xFFFFFFFF, n - 1))
+            for key, e in _kmer_compare(seq, k, cuts, **flags).items():
+                errs[key] = max(errs.get(key, 0.0), e)
+            kw = dict(k=k, noncanonical=flags.get("noncanonical", False))
+            note("codes_planes", kc.kmer_hashes_fused_planes(codes, **kw),
+                 kc.kmer_hashes_fused_planes_plain(codes, **kw), f"K12 at n = {n}, k = {k}")
+            F, R, _ = kmers._pack_windows(
+                torch.nn.functional.pad(codes, (0, k - 1), value=4).long(), n, k)
+            note("canonical_murmur", (kc.canonical_murmur(F, R, **kw),),
+                 (kc.canonical_murmur_plain(F, R, **kw),), f"K11 at n = {n}, k = {k}")
+            if k > 16:
+                for cut in cuts:
+                    note("topk_groups", kc.kmer_hashes_packed_topk_planes(codes, *cut, **kw),
+                         kc.kmer_hashes_packed_topk_planes_plain(codes, *cut, **kw),
+                         f"K10 at n = {n}, k = {k}, cut {cut}")
+    return errs
+
+
 def phase_kmer_kernels(dev, rng):
     """K5-K8 against their plain versions on 1 Mi mixed positions at k = 16,
     21 and 32, canonical or not, case folded or kept; the masked and top-8
     kernels at the s = 1000 threshold, at a dense one that overflows groups
     and at the saturated one, with cut lengths.  64 of K7's hashes against
-    the scalar MurmurHash3 of the canonical k bytes.  Returns the errors."""
+    the scalar MurmurHash3 of the canonical k bytes.  Then the tile-edge set
+    of :func:`_kmer_tile_edges` (K5-K8, K10-K12).  Returns the errors by
+    ``LAUNCHES`` key."""
     import numpy as np
     import torch
 
@@ -781,8 +852,12 @@ def phase_kmer_kernels(dev, rng):
         rc = bytes(ctab[np.frombuffer(kmer, np.uint8)][::-1])
         if int(h[p]) != hash_bytes(min(kmer, rc), seed=42):
             raise AssertionError(f"K7 position {p} differs from the scalar MurmurHash3")
+    for key, e in _kmer_tile_edges(dev, rng).items():
+        errs[key] = max(errs.get(key, 0.0), e)
     print(f"K5-K8: {n} mixed positions at k = 16, 21, 32 equal to the plain versions (masked "
-          f"and top-8 at 3 thresholds each); {len(probe)} K7 hashes equal the scalar oracle")
+          f"and top-8 at 3 thresholds each); {len(probe)} K7 hashes equal the scalar oracle; "
+          f"K5-K8 and K10-K12 equal on the tile-edge set (lengths {4 * KMER_TILE} +- 1, "
+          "a misaligned view, k = 1 to 32)")
     return errs
 
 
@@ -1721,6 +1796,8 @@ def main() -> int:
     for t, key in ((k5, "topk8"), (k6, "masked"), (k7, "planes_k32"), (k8, "planes_k16")):
         t["max_abs_err"] = max(t["max_abs_err"], kmer_errs[key])
     k10, k11, k12, k15 = phase_kmer_variants(dev, work)
+    for t, key in ((k10, "topk_groups"), (k11, "canonical_murmur"), (k12, "codes_planes")):
+        t["max_abs_err"] = max(t["max_abs_err"], kmer_errs[key])
 
     err9 = phase_k9(dev, rng)
     config4_launches, k9, _ = phase_config4(dev, rng, work)

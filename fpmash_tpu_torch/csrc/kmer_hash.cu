@@ -13,35 +13,52 @@
 // K5-K8 are routed in the JAX package; K10, K11 and K12 are its older
 // formulations, reached only through their own entry points.
 //
-// Two __device__ parts make every kernel:
-//   load_window     builds the big-endian 2-bit window F, its packed reverse
-//                   complement R (complement c ^ 3 at bit 2j) and the window's
-//                   validity from a stream of 2-bit codes, where a code of 4 or
-//                   more is invalid and packs as code & 3.  Three streams feed
-//                   it: the byte stream (a-z folded to upper case unless
-//                   preserve case, A C G T -> 0-3, any other byte and any
-//                   position past the end -> 4), the code stream (positions
-//                   past the end -> 4) and the wrapped code stream of K12.
-//   canonical_hash  takes min(F, R) as unsigned 64-bit values unless
-//                   noncanonical, rebuilds the ASCII bytes of bits [0, 2k) as
-//                   little-endian words and runs MurmurHash3_x64_128 over the
-//                   k bytes, keeping h1.
+// The body, in three parts:
+//   stage           a block reads its tile of the stream once (16-byte loads),
+//                   maps each position once to a 2-bit code and an invalid
+//                   flag, and keeps both packed in shared memory: the codes
+//                   little-endian (position q at bits 2q), the flags one bit a
+//                   position.  Three streams feed it: the byte stream (a-z
+//                   folded to upper case unless preserve case, A C G T -> 0-3,
+//                   any other byte and any position past the end -> 4), the
+//                   code stream (positions past the end -> 4) and the wrapped
+//                   code stream of K12.  A code of 4 or more is invalid and
+//                   packs as code & 3.
+//   staged_window   reads the window at a position in O(1): two funnel shifts
+//                   give its 2k code bits `le` (code j at bits 2j), one more its
+//                   k invalid flags.
+//   window_hash     R, the packed reverse complement (complement c ^ 3 at bit
+//                   2j), is le ^ M (M the low 2k bits); F, the big-endian
+//                   window, is le with its digits reversed (a bit reversal,
+//                   a swap of each bit pair, a shift).  The pick is R only
+//                   when R < F as unsigned 64-bit values, unless
+//                   noncanonical; its ASCII bytes in message order are the
+//                   digits of le (pick F) or F ^ M (pick R), little-endian,
+//                   so digits_hash spreads 8 digits to 8 bytes with two
+//                   shift-masks and two byte permutes (the bytes at k and up
+//                   select a zero byte) and runs MurmurHash3_x64_128 over
+//                   the k bytes, keeping h1.  K11 reverses its given pick
+//                   the same way (canonical_hash).
 // The TPU kernels took pre-packed 16-code planes built by XLA ladders (and an
 // XLA pass that turned bytes into codes); those passes are folded into the
-// load.  Every shift is by less than the operand's width (F and R are built 2
-// bits at a time, bytes placed at 8 (j & 7) < 64), so k = 32 needs no guard.
+// staging.  No shift reaches the operand's width: M is ~0 >> (64 - 2k) and the
+// reversal shifts by 64 - 2k <= 62, so k = 32 needs no guard.
 //
 // Planes: h1's low and high 32 bits as u32 (the TPU kernels' output layout);
 // the wrappers keep them in int32 tensors.  A dropped lane holds 0xFFFFFFFF
 // on both planes, and a survivor equal to that pair counts as a pad, as in the
 // JAX package.
 //
-// What bounds it on the card: the arithmetic, about 300 integer operations per
-// position at k = 21 (the packing loop, the byte rebuild and five 64-bit
-// multiplies); the k loads per position overlap those of the neighbouring
-// threads and come from L1.  One thread per position (K10: per group);
-// keeping a block's span of the stream in shared memory and rolling F and R
-// along it are left for later.
+// What bounds it on the card: the integer operations.  Per position about 10
+// to stage, about 35 to read the window, reverse it and pick, about 20 to make
+// the bytes, and MurmurHash3 (about 95 at k = 21: one block, one tail word,
+// the closing mix) -- about 160 in all at k = 21, where the one thread a
+// position that read and mapped its k bytes and rebuilt them one at a time
+// issued about 450.  The stream is read once a tile (4 096 positions and a
+// halo of 32; K10: its block of 16 384), so memory moves 9 bytes a position
+// (K7) and stays far below the operations.  Lanes take consecutive positions:
+// their shared-memory reads fall on one or two words (broadcasts) and their
+// stores coalesce.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -52,57 +69,103 @@ namespace {
 
 constexpr uint32_t kPad = 0xFFFFFFFFu;
 constexpr int kThreads = 256;
+constexpr int kTile = 4096;  // positions a block of K5-K8 and K12 hashes
 constexpr int kGroup = 128;  // K5: positions per group
 constexpr int kKeep = 8;     // K5, K10: survivors kept per group
 constexpr int kFlagNoncanonical = 1;
 constexpr int kFlagPreserveCase = 2;
 // K10 and K12: the TPU layout, rows of kRowBlock positions in blocks of
 // kGroups rows (kmers_pallas.py ROW_BLOCK and GROUPS)
-constexpr int64_t kRowBlock = 2048;
+constexpr int kRowBlock = 2048;
 constexpr int kGroups = 8;
-constexpr int64_t kBlock = kRowBlock * kGroups;
+constexpr int kBlock = kRowBlock * kGroups;
 constexpr int kTopkWidth = 128;  // K10: groups per block (W_TOPK)
 
+// Staged positions of a tile of T: T and a halo of 32 (a window reaches 31
+// past its start, and staged_window reads the word after its last), in chunks
+// of 16 positions.
+__host__ __device__ constexpr int staged_chunks(int tile) { return tile / 16 + 2; }
+
 // The streams are built inside each kernel from its __restrict__ pointer
-// parameter: K5-K8 ran as fast as with the loads written in place, while a
-// stream passed as a struct parameter made them about 2 % slower, and __ldg
-// loads 6-8 % slower (kernel_ab.py, one H100).  Each stream takes (data, n,
-// np, flags) and gives the code at any position q >= 0.
+// parameter (a stream passed as a struct parameter made the kernels about
+// 2 % slower, kernel_ab.py, one H100).  Each stream takes (data, n, np,
+// flags), gives the code at any position q >= 0, and the 16 codes of the
+// chunk at q0 (a multiple of 16), with 16-byte loads where the chunk lies
+// inside the data and the data is 16-byte aligned.
 
 // The byte stream: K5-K8.
 struct ByteStream {
   using Elem = uint8_t;
   const uint8_t* seq;
   int64_t n;
-  bool preserve_case;
+  uint32_t fold;  // 0xDF folds a-z to A-Z (and no other byte to A, C, G or T)
+  bool aligned;
 
   __device__ ByteStream(const uint8_t* data, int64_t n_, int64_t, int flags)
-      : seq(data), n(n_), preserve_case((flags & kFlagPreserveCase) != 0) {}
+      : seq(data),
+        n(n_),
+        fold((flags & kFlagPreserveCase) ? 0xFFu : 0xDFu),
+        aligned((reinterpret_cast<uintptr_t>(data) & 15) == 0) {}
+
+  // A C G T -> 0 1 2 3 from bits 1-2 of the byte; any other byte -> 4
+  // (selector 0x444c: byte c of "ACGT", then three zero bytes)
+  __device__ __forceinline__ uint32_t code(uint32_t b) const {
+    const uint32_t u = b & fold;
+    const uint32_t c = ((u >> 1) & 3u) ^ ((u >> 2) & 1u);
+    return u == __byte_perm(0x54474341u, 0, 0x4440u | c) ? c : 4u;
+  }
 
   __device__ __forceinline__ uint32_t operator()(int64_t q) const {
-    if (q >= n) return 4u;
-    uint8_t b = seq[q];
-    if (!preserve_case && b >= 'a' && b <= 'z') b -= 32;
-    switch (b) {
-      case 'A': return 0;
-      case 'C': return 1;
-      case 'G': return 2;
-      case 'T': return 3;
-      default: return 4;
+    return q < n ? code(seq[q]) : 4u;
+  }
+
+  __device__ __forceinline__ void chunk(int64_t q0, uint32_t (&c)[16]) const {
+    if (aligned && q0 + 16 <= n) {
+      const uint4 v = *reinterpret_cast<const uint4*>(seq + q0);
+      const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int i = 0; i < 16; ++i) c[i] = code((w[i >> 2] >> (8 * (i & 3))) & 0xFFu);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) c[i] = (*this)(q0 + i);
     }
   }
 };
+
+// The 16 u32 codes at q0 of a code array with n entries.
+__device__ __forceinline__ bool load_codes16(const uint32_t* codes, int64_t n, bool aligned,
+                                             int64_t q0, uint32_t (&c)[16]) {
+  if (!aligned || q0 + 16 > n) return false;
+  const uint4* v = reinterpret_cast<const uint4*>(codes + q0);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint4 x = v[i];
+    c[4 * i] = x.x;
+    c[4 * i + 1] = x.y;
+    c[4 * i + 2] = x.z;
+    c[4 * i + 3] = x.w;
+  }
+  return true;
+}
 
 // The code stream: K10 (codes as u32, positions past the end are 4).
 struct CodeStream {
   using Elem = uint32_t;
   const uint32_t* codes;
   int64_t n;
+  bool aligned;
 
-  __device__ CodeStream(const uint32_t* data, int64_t n_, int64_t, int) : codes(data), n(n_) {}
+  __device__ CodeStream(const uint32_t* data, int64_t n_, int64_t, int)
+      : codes(data), n(n_), aligned((reinterpret_cast<uintptr_t>(data) & 15) == 0) {}
 
   __device__ __forceinline__ uint32_t operator()(int64_t q) const {
     return q < n ? codes[q] : 4u;
+  }
+
+  __device__ __forceinline__ void chunk(int64_t q0, uint32_t (&c)[16]) const {
+    if (load_codes16(codes, n, aligned, q0, c)) return;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) c[i] = (*this)(q0 + i);
   }
 };
 
@@ -114,95 +177,180 @@ struct WrappedCodeStream {
   using Elem = uint32_t;
   const uint32_t* codes;
   int64_t n, np;
+  bool aligned;
 
   __device__ WrappedCodeStream(const uint32_t* data, int64_t n_, int64_t np_, int)
-      : codes(data), n(n_), np(np_) {}
+      : codes(data), n(n_), np(np_), aligned((reinterpret_cast<uintptr_t>(data) & 15) == 0) {}
 
   __device__ __forceinline__ uint32_t operator()(int64_t q) const {
     if (q >= np) q -= np;
     return q < n ? codes[q] : 4u;
   }
+
+  __device__ __forceinline__ void chunk(int64_t q0, uint32_t (&c)[16]) const {
+    if (load_codes16(codes, n, aligned, q0, c)) return;  // q0 + 16 <= n < np: no wrap
+#pragma unroll
+    for (int i = 0; i < 16; ++i) c[i] = (*this)(q0 + i);
+  }
 };
 
-// F, R and validity of the window of k <= MaxK <= 32 codes at position p.
-template <int MaxK, class Stream>
-__device__ __forceinline__ bool load_window(const Stream& stream, int64_t p, int k,
-                                            uint64_t* F, uint64_t* R) {
-  uint64_t f = 0, r = 0;
-  bool ok = true;
+// Stages `chunks` (even) chunks of 16 positions from `base` into shared
+// memory: packed[q >> 4] holds the code of position base + q at bits
+// 2 (q & 15) (an invalid code as code & 3), bad[q >> 5] its invalid flag at
+// bit q & 31.  One thread a chunk; the even lane of a pair writes the pair's
+// flags.  Every thread of the block (a multiple of 32) calls it.
+template <class Stream>
+__device__ __forceinline__ void stage(const Stream& stream, int64_t base, int chunks,
+                                      uint32_t* packed, uint32_t* bad) {
+  for (int c0 = 0; c0 < chunks; c0 += blockDim.x) {
+    const int c = c0 + threadIdx.x;
+    uint32_t bits = 0, flags = 0;
+    if (c < chunks) {
+      uint32_t code[16];
+      stream.chunk(base + 16 * c, code);
 #pragma unroll
-  for (int j = 0; j < MaxK; ++j) {
-    if (j < k) {
-      const uint32_t code = stream(p + j);
-      ok &= code < 4;
-      const uint64_t c = code & 3u;
-      f = (f << 2) | c;
-      r |= (c ^ 3u) << (2 * j);
+      for (int i = 0; i < 16; ++i) {
+        bits |= (code[i] & 3u) << (2 * i);
+        flags |= (code[i] > 3u ? 1u : 0u) << i;
+      }
+    }
+    const uint32_t next = __shfl_down_sync(0xFFFFFFFFu, flags, 1);
+    if (c < chunks) {
+      packed[c] = bits;
+      if (!(c & 1)) bad[c >> 1] = flags | (next << 16);
     }
   }
-  *F = f;
-  *R = r;
-  return ok;
+}
+
+// What every window of a launch shares, from k: built on the host and passed
+// by value, so its fields are uniform operands of the kernel's instructions.
+struct KmerShape {
+  int k;
+  int flip;         // 64 - 2k: brings a bit-reversed window's digits down to bit 0
+  uint64_t digits;  // M, the low 2k bits
+  uint32_t codes;   // the low k bits: a window's invalid flags
+  uint32_t pad[4];  // per 8-byte word, selector nibble 4 (a zero byte) at each byte >= k
+
+  explicit KmerShape(int k_)
+      : k(k_), flip(64 - 2 * k_), digits(~0ull >> (64 - 2 * k_)), codes(~0u >> (32 - k_)) {
+    for (int i = 0; i < 4; ++i) {
+      const int r = k_ - 8 * i;  // bytes of word i below k
+      pad[i] = r >= 8 ? 0u : r <= 0 ? 0x44444444u : 0x44444444u << (4 * r);
+    }
+  }
+};
+
+// The 2k code bits of the window at staged position q, little-endian (the
+// code of position q + j at bits 2j), and whether its k codes are valid.
+template <int MaxK>
+__device__ __forceinline__ uint64_t staged_window(const uint32_t* packed, const uint32_t* bad,
+                                                  int q, const KmerShape& s, bool* ok) {
+  const int w = q >> 4;
+  const int shift = 2 * (q & 15);
+  const uint32_t a = packed[w], b = packed[w + 1];
+  uint64_t le = __funnelshift_r(a, b, shift);
+  if constexpr (MaxK > 16) {
+    le |= static_cast<uint64_t>(__funnelshift_r(b, packed[w + 2], shift)) << 32;
+  }
+  const int v = q >> 5;
+  *ok = (__funnelshift_r(bad[v], bad[v + 1], q & 31) & s.codes) == 0;
+  return le & s.digits;
+}
+
+// Swaps the two bits of every 2-bit digit.
+__device__ __forceinline__ uint64_t swap_pairs(uint64_t x) {
+  return ((x >> 1) & 0x5555555555555555ull) | ((x & 0x5555555555555555ull) << 1);
+}
+
+__device__ __forceinline__ uint32_t swap_pairs32(uint32_t x) {
+  return ((x >> 1) & 0x55555555u) | ((x & 0x55555555u) << 1);
+}
+
+// The ASCII bytes (A C G T) of the 8 digits in bytes 0 and 2 of x (from a
+// byte permute of the little-endian digits), with the selector nibbles of
+// pad or'ed in: a byte whose nibble is 4 or more is 0.
+__device__ __forceinline__ uint64_t ascii_word(uint32_t x, uint32_t pad) {
+  x = (x | (x << 4)) & 0x0F0F0F0Fu;
+  x = ((x | (x << 2)) & 0x33333333u) | pad;  // nibble i: digit i
+  const uint32_t lo = __byte_perm(0x54474341u, 0, x);
+  const uint32_t hi = __byte_perm(0x54474341u, 0, x >> 16);
+  return (static_cast<uint64_t>(hi) << 32) | lo;
+}
+
+// h1 of MurmurHash3_x64_128 over the k ASCII bytes of the little-endian
+// digits L (byte j is the digit at bits 2j; L's bits above 2k are 0).
+template <int MaxK>
+__device__ __forceinline__ uint64_t digits_hash(uint64_t L, const KmerShape& s, uint64_t seed) {
+  const uint32_t lo = static_cast<uint32_t>(L);
+  const uint64_t w0 = ascii_word(__byte_perm(lo, 0, 0x4140), s.pad[0]);
+  const uint64_t w1 = ascii_word(__byte_perm(lo, 0, 0x4342), s.pad[1]);
+  uint64_t h1 = seed, h2 = seed;
+  const int nblocks = s.k >> 4;
+  const int tail = s.k & 15;
+  uint64_t t1 = w0, t2 = w1;  // the tail's words
+  if (nblocks >= 1) fpmash::murmur_block(h1, h2, w0, w1);
+  if constexpr (MaxK > 16) {
+    const uint32_t hi = static_cast<uint32_t>(L >> 32);
+    const uint64_t w2 = ascii_word(__byte_perm(hi, 0, 0x4140), s.pad[2]);
+    const uint64_t w3 = ascii_word(__byte_perm(hi, 0, 0x4342), s.pad[3]);
+    if (nblocks >= 2) fpmash::murmur_block(h1, h2, w2, w3);
+    if (nblocks >= 1) {
+      t1 = w2;
+      t2 = w3;
+    }
+  }
+  if (tail > 8) h2 ^= fpmash::mix_k2(t2);
+  if (tail > 0) h1 ^= fpmash::mix_k1(t1);
+  fpmash::murmur_finish(h1, h2, static_cast<uint64_t>(s.k));
+  return h1;
+}
+
+// h1 of the canonical k-mer whose little-endian digits are le.
+template <int MaxK>
+__device__ __forceinline__ uint64_t window_hash(uint64_t le, const KmerShape& s, int flags,
+                                                uint64_t seed) {
+  const bool canonical = !(flags & kFlagNoncanonical);
+  if constexpr (MaxK <= 16) {  // 2k <= 32: the same in 32 bits
+    const uint32_t l = static_cast<uint32_t>(le), m = static_cast<uint32_t>(s.digits);
+    const uint32_t F = swap_pairs32(__brev(l)) >> (s.flip - 32);
+    const bool take_r = canonical && (l ^ m) < F;
+    return digits_hash<MaxK>(take_r ? F ^ m : l, s, seed);
+  } else {
+    const uint64_t F = swap_pairs(__brevll(le)) >> s.flip;
+    const bool take_r = canonical && (le ^ s.digits) < F;
+    return digits_hash<MaxK>(take_r ? F ^ s.digits : le, s, seed);
+  }
 }
 
 // h1 of the canonical pick of (F, R): R only when R < F as unsigned 64-bit
 // values (the TPU kernel compares the full pairs); only bits [0, 2k) are read.
-template <int MaxK>
-__device__ __forceinline__ uint64_t canonical_hash(uint64_t F, uint64_t R, int k, int flags,
-                                                   uint64_t seed) {
+__device__ __forceinline__ uint64_t canonical_hash(uint64_t F, uint64_t R, const KmerShape& s,
+                                                   int flags, uint64_t seed) {
   const uint64_t P = ((flags & kFlagNoncanonical) || !(R < F)) ? F : R;
-
-  // ASCII bytes of P: byte j holds the code at bit 2 (k - 1 - j)
-  uint64_t w0 = 0, w1 = 0, w2 = 0, w3 = 0;
-#pragma unroll
-  for (int j = 0; j < MaxK; ++j) {
-    if (j < k) {
-      const uint64_t d = (P >> (2 * (k - 1 - j))) & 3u;
-      const uint64_t d1 = d >> 1;
-      const uint64_t b = (65u + 2u * d + 2u * d1 + 11u * (d & d1)) << (8 * (j & 7));
-      if (j < 8) w0 |= b;
-      else if (j < 16) w1 |= b;
-      else if (j < 24) w2 |= b;
-      else w3 |= b;
-    }
-  }
-
-  uint64_t h1 = seed, h2 = seed;
-  const int nblocks = k >> 4;
-  const int tail = k & 15;
-  if (nblocks >= 1) fpmash::murmur_block(h1, h2, w0, w1);
-  if (nblocks >= 2) fpmash::murmur_block(h1, h2, w2, w3);
-  if (tail > 8) h2 ^= fpmash::mix_k2(nblocks == 0 ? w1 : w3);
-  if (tail > 0) h1 ^= fpmash::mix_k1(nblocks == 0 ? w0 : w2);
-  fpmash::murmur_finish(h1, h2, static_cast<uint64_t>(k));
-  return h1;
-}
-
-// h1 of the canonical k-mer at position p; *valid is true iff its k codes are
-// all below 4.
-template <int MaxK, class Stream>
-__device__ __forceinline__ uint64_t window_hash(const Stream& stream, int64_t p, int k, int flags,
-                                                uint64_t seed, bool* valid) {
-  uint64_t F, R;
-  *valid = load_window<MaxK>(stream, p, k, &F, &R);
-  return canonical_hash<MaxK>(F, R, k, flags, seed);
+  return digits_hash<32>(swap_pairs(__brevll(P)) >> s.flip, s, seed);
 }
 
 // K7/K8 (byte stream) and K12 (wrapped code stream): unmasked planes and
-// window validity.
+// window validity of the block's tile.
 template <int MaxK, class Stream>
-__global__ void kmer_hashes_kernel(const typename Stream::Elem* __restrict__ data, int64_t n,
-                                   int64_t np, int k, int flags, uint64_t seed,
-                                   uint32_t* __restrict__ lo, uint32_t* __restrict__ hi,
-                                   uint8_t* __restrict__ valid) {
-  const int64_t p = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (p >= n) return;
-  const Stream stream(data, n, np, flags);
-  bool ok;
-  const uint64_t h = window_hash<MaxK>(stream, p, k, flags, seed, &ok);
-  lo[p] = static_cast<uint32_t>(h);
-  hi[p] = static_cast<uint32_t>(h >> 32);
-  valid[p] = ok;
+__global__ void __launch_bounds__(kThreads)
+    kmer_hashes_kernel(const typename Stream::Elem* __restrict__ data, int64_t n, int64_t np,
+                       KmerShape shape, int flags, uint64_t seed, uint32_t* __restrict__ lo,
+                       uint32_t* __restrict__ hi, uint8_t* __restrict__ valid) {
+  __shared__ uint32_t packed[staged_chunks(kTile)];
+  __shared__ uint32_t bad[staged_chunks(kTile) / 2];
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * kTile;
+  stage(Stream(data, n, np, flags), base, staged_chunks(kTile), packed, bad);
+  __syncthreads();
+  for (int q = threadIdx.x; q < kTile && base + q < n; q += kThreads) {
+    const int64_t p = base + q;
+    bool ok;
+    const uint64_t h = window_hash<MaxK>(staged_window<MaxK>(packed, bad, q, shape, &ok), shape,
+                                         flags, seed);
+    lo[p] = static_cast<uint32_t>(h);
+    hi[p] = static_cast<uint32_t>(h >> 32);
+    valid[p] = ok;
+  }
 }
 
 // Whether the window at p is kept: valid, starting at or before length - k,
@@ -213,78 +361,99 @@ __device__ __forceinline__ bool survives(uint64_t h, bool ok, int64_t p, int64_t
 }
 
 // K6: planes with every dropped lane set to the pad on both planes.
-__global__ void kmer_masked_kernel(const uint8_t* __restrict__ seq, int64_t n, int64_t length,
-                                   int k, int flags, uint64_t seed, uint32_t t_hi,
-                                   uint32_t* __restrict__ lo, uint32_t* __restrict__ hi) {
-  const int64_t p = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (p >= n) return;
-  const ByteStream stream(seq, n, 0, flags);
-  bool ok;
-  const uint64_t h = window_hash<32>(stream, p, k, flags, seed, &ok);
-  const bool keep = survives(h, ok, p, length, k, t_hi);
-  lo[p] = keep ? static_cast<uint32_t>(h) : kPad;
-  hi[p] = keep ? static_cast<uint32_t>(h >> 32) : kPad;
+__global__ void __launch_bounds__(kThreads)
+    kmer_masked_kernel(const uint8_t* __restrict__ seq, int64_t n, int64_t length,
+                       KmerShape shape, int flags, uint64_t seed, uint32_t t_hi,
+                       uint32_t* __restrict__ lo, uint32_t* __restrict__ hi) {
+  __shared__ uint32_t packed[staged_chunks(kTile)];
+  __shared__ uint32_t bad[staged_chunks(kTile) / 2];
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * kTile;
+  stage(ByteStream(seq, n, 0, flags), base, staged_chunks(kTile), packed, bad);
+  __syncthreads();
+  for (int q = threadIdx.x; q < kTile && base + q < n; q += kThreads) {
+    const int64_t p = base + q;
+    bool ok;
+    const uint64_t h = window_hash<32>(staged_window<32>(packed, bad, q, shape, &ok), shape,
+                                       flags, seed);
+    const bool keep = survives(h, ok, p, length, shape.k, t_hi);
+    lo[p] = keep ? static_cast<uint32_t>(h) : kPad;
+    hi[p] = keep ? static_cast<uint32_t>(h >> 32) : kPad;
+  }
 }
 
 // K5: one warp per group of 128 consecutive positions (group g holds
-// positions 128 g .. 128 g + 127).  Lane l hashes positions 128 g + 32 i + l,
-// i = 0..3; a ballot per i compacts the survivors, duplicates kept, into the
-// warp's slice of shared memory.  Each survivor's rank is the number that sort
-// before it by (value, slot); ranks 0-7 are written ascending to slots
-// 8 g .. 8 g + 7, and slots beyond the survivor count get the pad.  A group of
-// more than 8 survivors sets *overflow.  The TPU kernel's lane-strided groups
-// (lane mod 128 of an 8 x 2048 block) and sorting networks are not carried
-// over: K10 below keeps them.
-__global__ void kmer_topk8_kernel(const uint8_t* __restrict__ seq, int64_t n, int64_t length,
-                                  int k, int flags, uint64_t seed, uint32_t t_hi,
-                                  int64_t n_groups, uint32_t* __restrict__ clo,
-                                  uint32_t* __restrict__ chi, int32_t* __restrict__ overflow) {
-  __shared__ uint64_t survivors[kThreads / 32][kGroup];
-  const ByteStream stream(seq, n, 0, flags);
+// positions 128 g .. 128 g + 127), each warp 4 of the tile's 32 groups in
+// turn.  Lane l hashes positions 128 g + 32 i + l, i = 0..3; a ballot per i
+// compacts the survivors, duplicates kept, into the warp's slice of shared
+// memory.  Each survivor's rank is the number that sort before it by (value,
+// slot); equal values are equal planes, so the output does not depend on the
+// slot order.  Ranks 0-7 are written ascending to slots 8 g .. 8 g + 7, and
+// slots beyond the survivor count get the pad.  A group of more than 8
+// survivors sets *overflow.  The TPU kernel's lane-strided groups (lane mod
+// 128 of an 8 x 2048 block) and sorting networks are not carried over: K10
+// below keeps them.
+__global__ void __launch_bounds__(kThreads)
+    kmer_topk8_kernel(const uint8_t* __restrict__ seq, int64_t n, int64_t length,
+                      KmerShape shape, int flags, uint64_t seed, uint32_t t_hi, int64_t n_groups,
+                      uint32_t* __restrict__ clo, uint32_t* __restrict__ chi,
+                      int32_t* __restrict__ overflow) {
+  constexpr int kWarps = kThreads / 32;
+  constexpr int kWarpGroups = kTile / kGroup / kWarps;
+  __shared__ uint32_t packed[staged_chunks(kTile)];
+  __shared__ uint32_t bad[staged_chunks(kTile) / 2];
+  __shared__ uint64_t survivors[kWarps][kGroup];
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * kTile;
+  stage(ByteStream(seq, n, 0, flags), base, staged_chunks(kTile), packed, bad);
+  __syncthreads();
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int64_t g = static_cast<int64_t>(blockIdx.x) * (kThreads / 32) + warp;
-  if (g >= n_groups) return;  // the whole warp leaves together
   uint64_t* slot = survivors[warp];
 
-  int count = 0;
+  for (int j = 0; j < kWarpGroups; ++j) {
+    const int first = (warp * kWarpGroups + j) * kGroup;  // in the tile
+    const int64_t g = (base + first) / kGroup;
+    if (g >= n_groups) break;  // the whole warp leaves together
+    int count = 0;
 #pragma unroll
-  for (int i = 0; i < kGroup / 32; ++i) {
-    const int64_t p = g * kGroup + 32 * i + lane;
-    bool keep = false;
-    uint64_t h = 0;
-    if (p < n) {
-      bool ok;
-      h = window_hash<32>(stream, p, k, flags, seed, &ok);
-      keep = survives(h, ok, p, length, k, t_hi);
+    for (int i = 0; i < kGroup / 32; ++i) {
+      const int q = first + 32 * i + lane;
+      const int64_t p = base + q;
+      bool keep = false;
+      uint64_t h = 0;
+      if (p < n) {
+        bool ok;
+        h = window_hash<32>(staged_window<32>(packed, bad, q, shape, &ok), shape, flags, seed);
+        keep = survives(h, ok, p, length, shape.k, t_hi);
+      }
+      const unsigned ballot = __ballot_sync(0xFFFFFFFFu, keep);
+      if (keep) slot[count + __popc(ballot & ((1u << lane) - 1u))] = h;
+      count += __popc(ballot);
     }
-    const unsigned ballot = __ballot_sync(0xFFFFFFFFu, keep);
-    if (keep) slot[count + __popc(ballot & ((1u << lane) - 1u))] = h;
-    count += __popc(ballot);
-  }
-  __syncwarp();
+    __syncwarp();
 
-  for (int a = lane; a < count; a += 32) {
-    const uint64_t v = slot[a];
-    int rank = 0;
-    for (int b = 0; b < count; ++b) {
-      const uint64_t u = slot[b];
-      rank += (u < v) || (u == v && b < a);
+    for (int a = lane; a < count; a += 32) {
+      const uint64_t v = slot[a];
+      int rank = 0;
+      for (int b = 0; b < count; ++b) {
+        const uint64_t u = slot[b];
+        rank += (u < v) || (u == v && b < a);
+      }
+      if (rank < kKeep) {
+        clo[g * kKeep + rank] = static_cast<uint32_t>(v);
+        chi[g * kKeep + rank] = static_cast<uint32_t>(v >> 32);
+      }
     }
-    if (rank < kKeep) {
-      clo[g * kKeep + rank] = static_cast<uint32_t>(v);
-      chi[g * kKeep + rank] = static_cast<uint32_t>(v >> 32);
+    if (lane >= count && lane < kKeep) {
+      clo[g * kKeep + lane] = kPad;
+      chi[g * kKeep + lane] = kPad;
     }
+    if (lane == 0 && count > kKeep) *overflow = 1;
+    __syncwarp();  // the slice is refilled by the next group
   }
-  if (lane >= count && lane < kKeep) {
-    clo[g * kKeep + lane] = kPad;
-    chi[g * kKeep + lane] = kPad;
-  }
-  if (lane == 0 && count > kKeep) *overflow = 1;
 }
 
 // K10: the TPU kernel's own groups, one thread per group.  Block c of 16 384
-// positions has 128 groups; group j holds positions
+// positions, staged with its halo, has 128 groups; group j holds positions
 // 16384 c + 2048 s + j + 128 m (s < 8, m < 16), the lanes that the TPU
 // kernel's halving folds (kmers_pallas.py:681-700) bring to column j, so
 // neighbouring threads read neighbouring positions.  The thread keeps the 8
@@ -292,15 +461,18 @@ __global__ void kmer_topk8_kernel(const uint8_t* __restrict__ seq, int64_t n, in
 // index is static: each step moves an entry down or takes the new value),
 // duplicates kept, and writes rank i to slot 1024 c + 128 i + j; unused ranks
 // keep the pad.  More than 8 survivors set *overflow.  Unlike K5's warp
-// ballots and ranks, nothing is shared between threads, so the two kernels
-// check each other.
-__global__ void kmer_topk_groups_kernel(const uint32_t* __restrict__ codes, int64_t n,
-                                        int64_t length, int k, int flags, uint64_t seed,
-                                        uint32_t t_hi, uint32_t* __restrict__ clo,
-                                        uint32_t* __restrict__ chi,
-                                        int32_t* __restrict__ overflow) {
-  const CodeStream stream(codes, n, 0, flags);
+// ballots and ranks, nothing is shared between threads but the staged codes,
+// so the two kernels check each other.
+__global__ void __launch_bounds__(kTopkWidth)
+    kmer_topk_groups_kernel(const uint32_t* __restrict__ codes, int64_t n, int64_t length,
+                            KmerShape shape, int flags, uint64_t seed, uint32_t t_hi,
+                            uint32_t* __restrict__ clo, uint32_t* __restrict__ chi,
+                            int32_t* __restrict__ overflow) {
+  __shared__ uint32_t packed[staged_chunks(kBlock)];
+  __shared__ uint32_t bad[staged_chunks(kBlock) / 2];
   const int64_t c = blockIdx.x;
+  stage(CodeStream(codes, n, 0, flags), kBlock * c, staged_chunks(kBlock), packed, bad);
+  __syncthreads();
   const int j = threadIdx.x;
   uint64_t best[kKeep];
 #pragma unroll
@@ -308,10 +480,11 @@ __global__ void kmer_topk_groups_kernel(const uint32_t* __restrict__ codes, int6
   int count = 0;
   for (int s = 0; s < kGroups; ++s) {
     for (int m = 0; m < kRowBlock / kTopkWidth; ++m) {
-      const int64_t p = kBlock * c + kRowBlock * s + j + kTopkWidth * m;
+      const int q = kRowBlock * s + j + kTopkWidth * m;
       bool ok;
-      const uint64_t h = window_hash<32>(stream, p, k, flags, seed, &ok);
-      if (!survives(h, ok, p, length, k, t_hi)) continue;
+      const uint64_t h = window_hash<32>(staged_window<32>(packed, bad, q, shape, &ok), shape,
+                                         flags, seed);
+      if (!survives(h, ok, kBlock * c + q, length, shape.k, t_hi)) continue;
       ++count;
 #pragma unroll
       for (int i = kKeep - 1; i > 0; --i) {
@@ -331,14 +504,15 @@ __global__ void kmer_topk_groups_kernel(const uint32_t* __restrict__ codes, int6
 
 // K11: h1 of the canonical pick of given F and R (R is not read when
 // noncanonical).
-__global__ void canonical_murmur_kernel(const uint64_t* __restrict__ F,
-                                        const uint64_t* __restrict__ R, int64_t n, int k,
-                                        int flags, uint64_t seed, uint64_t* __restrict__ h1) {
+__global__ void __launch_bounds__(kThreads)
+    canonical_murmur_kernel(const uint64_t* __restrict__ F, const uint64_t* __restrict__ R,
+                            int64_t n, KmerShape shape, int flags, uint64_t seed,
+                            uint64_t* __restrict__ h1) {
   const int64_t p = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (p >= n) return;
   const uint64_t f = F[p];
   const uint64_t r = (flags & kFlagNoncanonical) ? f : R[p];
-  h1[p] = canonical_hash<32>(f, r, k, flags, seed);
+  h1[p] = canonical_hash(f, r, shape, flags, seed);
 }
 
 unsigned int blocks_for(int64_t items, int64_t per_block) {
@@ -356,11 +530,11 @@ extern "C" int fpmash_kmer_hashes(const void* seq, int64_t n, int32_t k, int32_t
   auto* out_hi = static_cast<uint32_t*>(hi);
   auto* out_valid = static_cast<uint8_t*>(valid);
   if (k <= 16) {
-    kmer_hashes_kernel<16, ByteStream><<<blocks_for(n, kThreads), kThreads, 0, s>>>(
-        in, n, 0, k, flags, seed, out_lo, out_hi, out_valid);
+    kmer_hashes_kernel<16, ByteStream><<<blocks_for(n, kTile), kThreads, 0, s>>>(
+        in, n, 0, KmerShape(k), flags, seed, out_lo, out_hi, out_valid);
   } else {
-    kmer_hashes_kernel<32, ByteStream><<<blocks_for(n, kThreads), kThreads, 0, s>>>(
-        in, n, 0, k, flags, seed, out_lo, out_hi, out_valid);
+    kmer_hashes_kernel<32, ByteStream><<<blocks_for(n, kTile), kThreads, 0, s>>>(
+        in, n, 0, KmerShape(k), flags, seed, out_lo, out_hi, out_valid);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -369,8 +543,8 @@ extern "C" int fpmash_kmer_hashes_masked(const void* seq, int64_t n, int64_t len
                                          int32_t flags, uint64_t seed, uint32_t t_hi, void* lo,
                                          void* hi, void* stream) {
   if (n <= 0) return static_cast<int>(cudaSuccess);
-  kmer_masked_kernel<<<blocks_for(n, kThreads), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(seq), n, length, k, flags, seed, t_hi,
+  kmer_masked_kernel<<<blocks_for(n, kTile), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(seq), n, length, KmerShape(k), flags, seed, t_hi,
       static_cast<uint32_t*>(lo), static_cast<uint32_t*>(hi));
   return static_cast<int>(cudaGetLastError());
 }
@@ -380,9 +554,8 @@ extern "C" int fpmash_kmer_hashes_topk8(const void* seq, int64_t n, int64_t leng
                                         void* chi, void* overflow, void* stream) {
   const int64_t n_groups = (n + kGroup - 1) / kGroup;
   if (n_groups <= 0) return static_cast<int>(cudaSuccess);
-  kmer_topk8_kernel<<<blocks_for(n_groups, kThreads / 32), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(seq), n, length, k, flags, seed, t_hi, n_groups,
+  kmer_topk8_kernel<<<blocks_for(n, kTile), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(seq), n, length, KmerShape(k), flags, seed, t_hi, n_groups,
       static_cast<uint32_t*>(clo), static_cast<uint32_t*>(chi),
       static_cast<int32_t*>(overflow));
   return static_cast<int>(cudaGetLastError());
@@ -397,7 +570,7 @@ extern "C" int fpmash_kmer_codes_topk(const void* codes, int64_t n, int64_t leng
   if (n_blocks <= 0) return static_cast<int>(cudaSuccess);
   kmer_topk_groups_kernel<<<static_cast<unsigned int>(n_blocks), kTopkWidth, 0,
                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(codes), n, length, k, flags, seed, t_hi,
+      static_cast<const uint32_t*>(codes), n, length, KmerShape(k), flags, seed, t_hi,
       static_cast<uint32_t*>(clo), static_cast<uint32_t*>(chi),
       static_cast<int32_t*>(overflow));
   return static_cast<int>(cudaGetLastError());
@@ -416,11 +589,11 @@ extern "C" int fpmash_kmer_codes_hashes(const void* codes, int64_t n, int32_t k,
   auto* out_hi = static_cast<uint32_t*>(hi);
   auto* out_valid = static_cast<uint8_t*>(valid);
   if (k <= 16) {
-    kmer_hashes_kernel<16, WrappedCodeStream><<<blocks_for(n, kThreads), kThreads, 0, s>>>(
-        in, n, np, k, flags, seed, out_lo, out_hi, out_valid);
+    kmer_hashes_kernel<16, WrappedCodeStream><<<blocks_for(n, kTile), kThreads, 0, s>>>(
+        in, n, np, KmerShape(k), flags, seed, out_lo, out_hi, out_valid);
   } else {
-    kmer_hashes_kernel<32, WrappedCodeStream><<<blocks_for(n, kThreads), kThreads, 0, s>>>(
-        in, n, np, k, flags, seed, out_lo, out_hi, out_valid);
+    kmer_hashes_kernel<32, WrappedCodeStream><<<blocks_for(n, kTile), kThreads, 0, s>>>(
+        in, n, np, KmerShape(k), flags, seed, out_lo, out_hi, out_valid);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -430,7 +603,7 @@ extern "C" int fpmash_canonical_murmur(const void* F, const void* R, int64_t n, 
   if (n <= 0) return static_cast<int>(cudaSuccess);
   canonical_murmur_kernel<<<blocks_for(n, kThreads), kThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint64_t*>(F), static_cast<const uint64_t*>(R), n, k, flags, seed,
-      static_cast<uint64_t*>(h1));
+      static_cast<const uint64_t*>(F), static_cast<const uint64_t*>(R), n, KmerShape(k), flags,
+      seed, static_cast<uint64_t*>(h1));
   return static_cast<int>(cudaGetLastError());
 }

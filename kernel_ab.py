@@ -1,4 +1,4 @@
-"""Time kernels of checkouts of the port, in turns, on one card: K1, K5-K8, K9 and K15.
+"""Time kernels of checkouts of the port, in turns, on one card: K1, K5-K12 and K15.
 
     python3 kernel_ab.py TREE_A TREE_B [--rounds 2]
 
@@ -11,9 +11,11 @@ at the main paths' shapes on inputs made from a fixed seed:
 
 * one chunk of 16 Mi positions holding 5 000 000 random bases and zero
   padding, as the direct route ships g1: K7 at k = 21, K8 at k = 16, K6 at
-  the s = 10 000 threshold, K5 at the s = 1000 one, and K15 on K6's masked
-  planes of it at s = 1000 as ``[4096, 4096]``, with ``torch.sort`` +
-  ``gather`` of the same planes beside it (``sort_library_ms``);
+  the s = 10 000 threshold, K5 at the s = 1000 one; at k = 21, K12 on the
+  chunk's int32 codes, K10 on them at the s = 1000 threshold and K11 on its
+  packed windows F and R; and K15 on K6's masked planes of it at s = 1000
+  as ``[4096, 4096]``, with ``torch.sort`` + ``gather`` of the same planes
+  beside it (``sort_library_ms``);
 * the 512 000 shift windows of 100 of 256 reads of 2 000 bases (K1);
 * BASELINE config 4's 10 100 sketches of s = 1000, made as
   ``chip_smoke._cluster_lists`` makes them: K9 at ``dist``'s 10 000 x 100
@@ -62,7 +64,7 @@ def worker(tree: Path) -> dict:
     import numpy as np
     import torch
 
-    from fpmash_tpu_torch.ops import _build, compare_cuda, fused_cuda, sort_cuda
+    from fpmash_tpu_torch.ops import _build, compare_cuda, fused_cuda, kmers, sort_cuda
     from fpmash_tpu_torch.ops import kmers_cuda as kc
     from fpmash_tpu_torch.ops.compare import _TILE_PAIRS
     from fpmash_tpu_torch.ops.kmers import chunk_threshold
@@ -78,6 +80,10 @@ def worker(tree: Path) -> dict:
     seq = torch.from_numpy(buf).to(dev)
     t5 = chunk_threshold(CHUNK, K_WIDE, 1000)[0]
     t6 = chunk_threshold(CHUNK, K_WIDE, 10_000)[0]
+    codes = torch.from_numpy(kmers._CODES).to(dev)[seq.long()]
+    F, R, _ = kmers._pack_windows(torch.nn.functional.pad(codes, (0, K_WIDE - 1), value=4),
+                                  CHUNK, K_WIDE)
+    codes = codes.to(torch.int32)
 
     reads = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, size=(N_READS, READ_LEN))]
     doubled = np.concatenate([reads, reads[:, : WINDOW - 1]], axis=1)
@@ -114,6 +120,9 @@ def worker(tree: Path) -> dict:
         "k6_ms": _time_ms(lambda: kc.kmer_hashes_masked_planes(seq, t6, BASES, k=K_WIDE)),
         "k7_ms": _time_ms(lambda: kc.kmer_hashes_planes(seq, k=K_WIDE)),
         "k8_ms": _time_ms(lambda: kc.kmer_hashes_planes(seq, k=K_NARROW)),
+        "k10_ms": _time_ms(lambda: kc.kmer_hashes_packed_topk_planes(codes, t5, BASES, k=K_WIDE)),
+        "k11_ms": _time_ms(lambda: kc.canonical_murmur(F, R, k=K_WIDE)),
+        "k12_ms": _time_ms(lambda: kc.kmer_hashes_fused_planes(codes, k=K_WIDE)),
         "k1_ms": _time_ms(lambda: fused_cuda.fingerprint_hashes(flat, starts, lengths, 42)),
     }
 

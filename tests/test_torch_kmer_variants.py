@@ -271,14 +271,25 @@ def cuda_device():
 @pytest.mark.gpu
 @pytest.mark.parametrize("k", [1, 16, 21, 32])
 def test_variant_kernels_match_plain_on_card(cuda_device, k):
+    """K12 also with windows across ``Np``: at ``N = Np`` (one and two
+    blocks, valid head and tail) the last ``k - 1`` windows read the
+    stream's head; codes 5-7 on the tile edges; and on a view that is not
+    16-byte aligned (the staging's element-wise loads)."""
     rng = np.random.default_rng(700 + k)
-    for n in (kmers_cuda.BLOCK, 3 * kmers_cuda.BLOCK + 77):
-        codes = _torch_codes(_codes(rng, n)).to(cuda_device)
-        before = kmers_cuda.LAUNCHES["codes_planes"]
-        got = kmers_cuda.kmer_hashes_fused_planes(codes, k=k)
-        assert kmers_cuda.LAUNCHES["codes_planes"] == before + 1
-        want = kmers_cuda.kmer_hashes_fused_planes_plain(codes, k=k)
-        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    for n in (kmers_cuda.BLOCK, 2 * kmers_cuda.BLOCK, 3 * kmers_cuda.BLOCK + 77):
+        host = _codes(rng, n)
+        host[:40] = rng.integers(0, 4, size=40)
+        host[-40:] = rng.integers(0, 4, size=40)
+        host[4095:4097] = (5, 7)
+        codes = _torch_codes(host).to(cuda_device)
+        for view in (codes, codes[1:]):
+            before = kmers_cuda.LAUNCHES["codes_planes"]
+            got = kmers_cuda.kmer_hashes_fused_planes(view, k=k)
+            assert kmers_cuda.LAUNCHES["codes_planes"] == before + 1
+            want = kmers_cuda.kmer_hashes_fused_planes_plain(view, k=k)
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
+            if view is codes and n % kmers_cuda.BLOCK == 0 and k > 1:
+                assert bool(got[2][n - k + 1 :].all())  # the wrapped windows are valid
 
         F = torch.from_numpy(rng.integers(0, 2**64, size=n, dtype=np.uint64).view(np.int64))
         R = F ^ torch.from_numpy(rng.integers(0, 4, size=n).astype(np.int64) << 40)
@@ -289,9 +300,10 @@ def test_variant_kernels_match_plain_on_card(cuda_device, k):
                 F, R, k=k, noncanonical=noncanonical))
         if k <= 16:
             continue
-        for t_hi, length in ((0x00800000, n), (0x30000000, n - 500), (0xFFFFFFFF, n - 1)):
+        for t_hi, length, view in ((0x00800000, n, codes), (0x30000000, n - 500, codes),
+                                   (0xFFFFFFFF, n - 1, codes), (0x30000000, n - 1, codes[1:])):
             before = kmers_cuda.LAUNCHES["topk_groups"]
-            got = kmers_cuda.kmer_hashes_packed_topk_planes(codes, t_hi, length, k=k)
+            got = kmers_cuda.kmer_hashes_packed_topk_planes(view, t_hi, length, k=k)
             assert kmers_cuda.LAUNCHES["topk_groups"] == before + 1
-            want = kmers_cuda.kmer_hashes_packed_topk_planes_plain(codes, t_hi, length, k=k)
+            want = kmers_cuda.kmer_hashes_packed_topk_planes_plain(view, t_hi, length, k=k)
             assert all(torch.equal(g, w) for g, w in zip(got, want))

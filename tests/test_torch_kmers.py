@@ -228,31 +228,54 @@ def cuda_device():
     return torch.device("cuda")
 
 
+#: positions a block of the k-mer kernels stages and hashes (csrc/kmer_hash.cu kTile)
+TILE = 4096
+
+
+def _tile_edge_bytes(rng, n):
+    """Mixed bytes with N on each side of every tile edge, 31 past it (the
+    halo's last position) and at the stream's end."""
+    seq = _mixed_bytes(rng, n)
+    for edge in range(TILE, n + 1, TILE):
+        for d in (-1, 0, 31):
+            if 0 <= edge + d < n:
+                seq[edge + d] = ord("N")
+    seq[-1] = ord("n")
+    return seq
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("k,noncanonical,preserve_case", [
-    (9, False, False), (16, True, True), (17, False, False), (21, False, True), (32, False, False)])
+    (1, False, False), (9, False, False), (16, True, True), (17, False, False),
+    (21, False, True), (32, False, False)])
 def test_kmer_kernels_match_plain_on_card(cuda_device, k, noncanonical, preserve_case):
+    """At a length with a partial group of 128 at the end, at tile multiples
+    and one off them (invalid bytes on the tile edges), and on a view that
+    is not 16-byte aligned (the staging's byte-wise loads)."""
     rng = np.random.default_rng(400 + k)
-    N = (1 << 16) + 77  # a partial group of 128 at the end
-    seq = torch.from_numpy(_mixed_bytes(rng, N)).to(cuda_device)
     kw = dict(k=k, noncanonical=noncanonical, preserve_case=preserve_case, seed=42)
     name = "planes_k16" if k <= 16 else "planes_k32"
-    before = kmers_cuda.LAUNCHES[name]
-    got = kmers_cuda.kmer_hashes_planes(seq, **kw)
-    assert kmers_cuda.LAUNCHES[name] == before + 1
-    want = kmers_cuda.kmer_hashes_planes_plain(seq, **kw)
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
-    if k <= 16:
-        return
-    for t_hi, length in ((0x00800000, N), (0x30000000, N - 500), (0xFFFFFFFF, N - 1)):
-        got = kmers_cuda.kmer_hashes_masked_planes(seq, t_hi, length, **kw)
-        want = kmers_cuda.kmer_hashes_masked_planes_plain(seq, t_hi, length, **kw)
-        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-        got = kmers_cuda.kmer_hashes_topk8_planes(seq, t_hi, length, **kw)
-        want = kmers_cuda.kmer_hashes_topk8_planes_plain(seq, t_hi, length, **kw)
-        assert all(torch.equal(g, w) for g, w in zip(got, want))
-        assert bool(got[2]) == (t_hi > 0x00800000)  # dense thresholds overflow
+    for N in ((1 << 16) + 77, 4 * TILE - 1, 4 * TILE, 4 * TILE + 1, TILE + 3):
+        seq = torch.from_numpy(_tile_edge_bytes(rng, N + 3)).to(cuda_device)
+        seq = seq[3:] if N == TILE + 3 else seq[:N]
+        before = kmers_cuda.LAUNCHES[name]
+        got = kmers_cuda.kmer_hashes_planes(seq, **kw)
+        assert kmers_cuda.LAUNCHES[name] == before + 1
+        want = kmers_cuda.kmer_hashes_planes_plain(seq, **kw)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        if k <= 16:
+            continue
+        for t_hi, length in ((0x00800000, N), (0x30000000, N - 500), (0xFFFFFFFF, N - 1)):
+            got = kmers_cuda.kmer_hashes_masked_planes(seq, t_hi, length, **kw)
+            want = kmers_cuda.kmer_hashes_masked_planes_plain(seq, t_hi, length, **kw)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            got = kmers_cuda.kmer_hashes_topk8_planes(seq, t_hi, length, **kw)
+            want = kmers_cuda.kmer_hashes_topk8_planes_plain(seq, t_hi, length, **kw)
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
+            assert bool(got[2]) == bool(want[2])
+            if N == (1 << 16) + 77:
+                assert bool(got[2]) == (t_hi > 0x00800000)  # dense thresholds overflow
 
 
 @pytest.mark.gpu
