@@ -36,7 +36,10 @@ from their phases, which name the ``entry_point``; exact-match errors;
 kernel and plain times at one shape, for K9 ``dist``'s with its ``pairs``
 and its 10^8-pair time beside it; each kernel's bound, the least time the
 card could take for its work, from its bytes and integer operations at that
-shape; for K15 the time of ``torch.sort`` and ``gather``), the
+shape; for K15 the time of ``torch.sort`` and ``gather``; for K3 and K14
+the time of their C entry point alone (``launch_ms``) beside the wrapper's,
+and their times at the generalized mode's 300-character chunks, at the
+golden's windows and with every window the same), the
 card's ``name, power.limit`` as ``nvidia-smi`` gives them, and
 ``{"ok": true, "device": {...}}``.  Without a usable card, or outside a
 checkout, it exits nonzero and prints no result.  It never imports JAX.
@@ -131,6 +134,73 @@ def _shift_stream(rng, n_reads: int, read_len: int, alphabet: bytes):
     row = read_len + WINDOW - 1
     starts = (np.arange(n_reads)[:, None] * row + np.arange(read_len)[None, :]).reshape(-1)
     return doubled.reshape(-1), starts.astype(np.int64)
+
+
+#: the ``fingerprint`` verb's generalized mode: reads cut into chunks of
+#: CHUNK_LEN characters, sent end to end (models/fingerprint.py:
+#: fingerprint_long_reads); N_CHUNKS of them reach factor_words' instance for
+#: rows of 256-1 023 (uint16 scratch) and its device-memory route
+N_CHUNKS, CHUNK_LEN = 131_072, 300
+
+
+def _chunk_stream(rng, dev):
+    """``(flat, starts, lengths)`` on ``dev``: N_CHUNKS seeded ACGT chunks of
+    CHUNK_LEN, end to end."""
+    import numpy as np
+    import torch
+
+    flat = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, size=N_CHUNKS * CHUNK_LEN)]
+    starts = np.arange(N_CHUNKS, dtype=np.int64) * CHUNK_LEN
+    lengths = np.full(N_CHUNKS, CHUNK_LEN, np.int32)
+    return tuple(torch.from_numpy(a).to(dev) for a in (flat, starts, lengths))
+
+
+def _factor_bound(args, words, ok) -> dict:
+    """K3's and K14's bound: the stream, starts and lengths in, boundary words
+    and ok out; a COMB family reads each character at least once on each strand."""
+    return _bound(args[0].numel() + args[1].numel() * (8 + 4) + words.numel() * 4 + ok.numel(),
+                  2 * int(args[2].clamp(min=0).sum()))
+
+
+def _factor_launch(args, family: str):
+    """A call of factor_words' C entry point alone, as the wrapper makes it
+    for ``args`` (outputs allocated once, no checks, no ``lengths.max()``,
+    which waits for the card): times the kernel without the wrapper's host work."""
+    import torch
+
+    from fpmash_tpu_torch.ops import icfl_cuda
+    from fpmash_tpu_torch.ops._build import check, library
+    from fpmash_tpu_torch.ops.factorize import plan
+    from fpmash_tpu_torch.ops.lyndon import words_width
+
+    base, threshold, comb = plan(family)
+    max_len = int(args[2].max())
+    B, W = args[1].numel(), words_width(max_len)
+    words = torch.empty((B, W), dtype=torch.int32, device=args[0].device)
+    ok = torch.empty(B, dtype=torch.bool, device=args[0].device)
+    fn = library().fpmash_factor_words
+    call = (args[0].data_ptr(), args[0].numel(), args[1].data_ptr(), args[2].data_ptr(), B,
+            icfl_cuda._BASES[base], threshold or 0, int(comb), max_len, words.data_ptr(), W,
+            ok.data_ptr(), torch.cuda.current_stream(args[0].device).cuda_stream)
+    check(fn(*call), f"factor_words {family} launch")
+    return lambda: fn(*call)
+
+
+def _factor_steps(args, family: str, pick) -> float:
+    """Automaton steps a character (both strands) on the windows ``pick``, as
+    the numpy model of csrc/factor_words.cu (tests/test_torch_factor_body.py,
+    which imports JAX only inside its JAX tests) counts them: Duval steps,
+    ICFL scan, chain and merge steps.  A count, not a measurement: it is
+    printed beside the times and kept out of the ``kernels`` line."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "factor_body_model", ROOT / "tests" / "test_torch_factor_body.py")
+    model = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(model)
+    flat, starts, lengths = (a.cpu().numpy() for a in args)
+    _, _, steps, _ = model.factor_words_model(flat, starts[pick], lengths[pick], family)
+    return sum(steps.values()) / max(int(lengths[pick].sum()), 1)
 
 
 def phase_k1(dev, rng):
@@ -579,8 +649,11 @@ def phase_families_golden(work: Path):
     file where there is one), and ``sketch --direct-fp --factorization F``
     equals the port's ``sketch -fp`` of the golden, hash for hash.  The
     uncompressed goldens cover a prefix of the records (``--rev_comb
-    false``); the gzipped ones all of them (``--rev_comb true``).  Returns
-    the launches of this phase."""
+    false``); the gzipped ones all of them (``--rev_comb true``).  Then K14
+    against its plain version and timed at the shape of these runs (the
+    golden's shift windows as ``fingerprint --rev_comb true`` sends them),
+    for each of its bases.  Returns the launches of this phase and K14's
+    times there."""
     import gzip
 
     import numpy as np
@@ -632,7 +705,30 @@ def phase_families_golden(work: Path):
         raise AssertionError(f"the families' CLI runs did not launch the Duval kernel: {launches}")
     print(f"golden: all ten families on cuda equal the lyn2vec goldens (fingerprint, fact "
           f"files, --direct-fp vs -fp); launches {launches}")
-    return launches
+
+    import torch
+
+    from fpmash_tpu_torch.models.fingerprint import extract_reads, window_stream
+    from fpmash_tpu_torch.ops import icfl_cuda
+
+    flat, starts, lengths, _ = window_stream([s for _, s in extract_reads(str(fasta), True)],
+                                             shift=True)
+    args = tuple(torch.from_numpy(a).to("cuda") for a in (flat, starts, lengths))
+    timed = {"windows": len(starts)}
+    for family in ("CFL_COMB", "CFL_ICFL_COMB-30"):  # the cfl and cfl_icfl bases
+        got = icfl_cuda.factor_words(*args, family)
+        want = icfl_cuda.factor_words_plain(*args, family)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"factor_words {family} differs from the plain version on "
+                                 "the golden")
+        timed[family] = {"ms": _time_ms(lambda f=family: icfl_cuda.factor_words(*args, f), 20),
+                         "launch_ms": _time_ms(_factor_launch(args, family), 20),
+                         "bound_ms": _factor_bound(args, *got)["bound_ms"]}
+    print(f"golden: K14 at the golden's {len(starts)} shift windows: "
+          + "; ".join(f"{f} {timed[f]['ms']:.4f} ms ({timed[f]['launch_ms']:.4f} ms through the "
+                      f"C entry point; bound {timed[f]['bound_ms']:.4f} ms)"
+                      for f in ("CFL_COMB", "CFL_ICFL_COMB-30")))
+    return launches, timed
 
 
 def phase_icfl_main_shapes(dev, work: Path, seqs_a):
@@ -647,7 +743,8 @@ def phase_icfl_main_shapes(dev, work: Path, seqs_a):
     from fpmash_tpu_torch.ops import icfl_cuda
 
     args = _main_stream(dev, seqs_a)
-    out = {}
+    sample = np.random.default_rng(8).choice(len(args[1]), 256, replace=False)
+    out, steps = {}, {}
     for name, family in (("k3", "ICFL_COMB"), ("k14", "CFL_COMB")):
         got = icfl_cuda.factor_words(*args, family)
         want = icfl_cuda.factor_words_plain(*args, family)
@@ -655,17 +752,45 @@ def phase_icfl_main_shapes(dev, work: Path, seqs_a):
             raise AssertionError(f"factor_words {family} differs from the plain version on a.fasta")
         if not bool(got[1].all()):
             raise AssertionError(f"factor_words {family}: {int((~got[1]).sum())} rows not ok")
+        # the time through the wrapper, as for every kernel; the C entry
+        # point's alone (no lengths.max(), which waits for the card) beside it
         out[name] = {
             "max_abs_err": _max_abs_err(zip(got, want)),
             "ms": _time_ms(lambda f=family: icfl_cuda.factor_words(*args, f), 20),
+            "launch_ms": _time_ms(_factor_launch(args, family), 20),
             "plain_ms": _time_ms(lambda f=family: icfl_cuda.factor_words_plain(*args, f), 1),
-            # the stream, starts and lengths in, boundary words and ok out; a
-            # COMB family reads each character at least once on each strand
-            **_bound(args[0].numel() + args[1].numel() * (8 + 4) + got[0].numel() * 4
-                     + got[1].numel(), 2 * int(args[2].clamp(min=0).sum())),
+            **_factor_bound(args, *got),
         }
+        # lanes in step: every window the same 100 characters, so that no lane
+        # of a warp waits for another (warp divergence measured, not modelled)
+        same = (args[0], torch.full_like(args[1], int(args[1][0])), args[2])
+        out[name]["same_window"] = {"launch_ms": _time_ms(_factor_launch(same, family), 20)}
+        # counted by the numpy model, not measured: printed, not recorded
+        steps[name] = (_factor_steps(args, family, sample), _factor_steps(same, family, [0]))
         if family == "ICFL_COMB":
             words = got[0]
+
+    # K3 at the generalized mode's shape, against its plain version on a sample
+    chunks = _chunk_stream(np.random.default_rng(CHUNK_LEN), dev)
+    got = icfl_cuda.factor_words(*chunks, "ICFL_COMB")
+    pick = np.random.default_rng(9).choice(N_CHUNKS, 2048, replace=False)
+    pick = torch.from_numpy(pick).to(dev)
+    sample = (chunks[0], chunks[1][pick], chunks[2][pick])
+    want = icfl_cuda.factor_words_plain(*sample, "ICFL_COMB")
+    if not (torch.equal(got[0][pick], want[0]) and torch.equal(got[1][pick], want[1])):
+        raise AssertionError("factor_words ICFL_COMB differs from the plain version on the chunks")
+    if not bool(got[1].all()):
+        raise AssertionError(f"factor_words ICFL_COMB: {int((~got[1]).sum())} chunks not ok")
+    out["k3"]["max_abs_err"] = max(out["k3"]["max_abs_err"],
+                                   _max_abs_err([(got[0][pick], want[0]), (got[1][pick], want[1])]))
+    out["k3"]["chunks"] = {
+        "shape": f"{N_CHUNKS} x {CHUNK_LEN}",
+        "ms": _time_ms(lambda: icfl_cuda.factor_words(*chunks, "ICFL_COMB"), 10),
+        "launch_ms": _time_ms(_factor_launch(chunks, "ICFL_COMB"), 10),
+        "plain_ms_2048_rows": _time_ms(lambda: icfl_cuda.factor_words_plain(*sample, "ICFL_COMB"),
+                                       1),
+        "bound_ms": _factor_bound(chunks, *got)["bound_ms"],
+    }
 
     got = icfl_cuda.hash_words(words, args[2], 42)
     want = icfl_cuda.hash_words_plain(words, args[2], 42)
@@ -688,7 +813,25 @@ def phase_icfl_main_shapes(dev, work: Path, seqs_a):
     }
     for family in ("ICFL", "CFL"):  # one pass of each base, for reference
         ms = _time_ms(lambda f=family: icfl_cuda.factor_words(*args, f), 20)
-        print(f"main-path shapes: factor_words {family} at {len(args[1])} windows {ms:.4f} ms")
+        print(f"main-path shapes: factor_words {family} at {len(args[1])} windows {ms:.4f} ms "
+              f"({_time_ms(_factor_launch(args, family), 20):.4f} ms through the C entry point)")
+    chars = int(args[2].sum())
+    for name in ("k3", "k14"):
+        rec, same = out[name], out[name]["same_window"]["launch_ms"]
+        per_char, same_per_char = steps[name]
+        print(f"main-path shapes: {name} {rec['ms']:.4f} ms through the wrapper, "
+              f"{rec['launch_ms']:.4f} ms through the C entry point alone; "
+              f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}); "
+              f"{per_char:.4f} automaton steps a character, both strands (counted by the numpy "
+              f"model on 256 windows): {rec['launch_ms'] * 1e6 / (chars * per_char):.6f} ns "
+              f"of the card a step; every window the same: {same:.4f} ms, "
+              f"{same_per_char:.4f} steps a character, "
+              f"{same * 1e6 / (chars * same_per_char):.6f} ns a step")
+    c = out["k3"]["chunks"]
+    print(f"main-path shapes: K3 (factor_words ICFL_COMB) at {c['shape']} chunks kernel "
+          f"{c['ms']:.4f} ms ({c['launch_ms']:.4f} ms through the C entry point), plain "
+          f"{c['plain_ms_2048_rows']:.4f} ms for 2048 of them, bound {c['bound_ms']:.4f} ms; "
+          "the sample equal to the plain version")
     print(f"main-path shapes: at {len(args[1])} windows K3 (factor_words ICFL_COMB) kernel "
           f"{out['k3']['ms']:.4f} ms, plain {out['k3']['plain_ms']:.4f} ms; K14 (factor_words "
           f"CFL_COMB) kernel {out['k14']['ms']:.4f} ms, plain {out['k14']['plain_ms']:.4f} ms; "
@@ -1777,7 +1920,7 @@ def main() -> int:
     err2 = phase_k2(dev, rng)
     errs = phase_factor_kernels(dev, rng)
     phase_golden(work)
-    family_launches = phase_families_golden(work)
+    family_launches, k14_golden = phase_families_golden(work)
     launches, seqs_a = phase_main_path(dev, rng, work, "CFL")
     k1, k2 = phase_main_shapes(dev, work, seqs_a)
     k13 = phase_k13_main_shapes(dev, seqs_a)
@@ -1788,6 +1931,7 @@ def main() -> int:
     k3["max_abs_err"] = max(k3["max_abs_err"], errs["icfl"])
     k4["max_abs_err"] = max(k4["max_abs_err"], errs["hash_words"])
     k14["max_abs_err"] = max(k14["max_abs_err"], errs["cfl"])
+    k14["golden"] = k14_golden
 
     kmer_errs = phase_kmer_kernels(dev, rng)
     phase_classic_goldens(work)
@@ -1819,7 +1963,9 @@ def main() -> int:
         {"name": "factor_words_cfl", "route": "cuda", "source": src + "factor_words.cu",
          "replaces": "fpmash_tpu/ops/lyndon_pallas.py:30",
          "launches": family_launches["factor_words:cfl"]
-         + family_launches["factor_words:cfl_icfl"], **k14},
+         + family_launches["factor_words:cfl_icfl"],
+         "launches_by_base": {"cfl": family_launches["factor_words:cfl"],
+                              "cfl_icfl": family_launches["factor_words:cfl_icfl"]}, **k14},
         {"name": "kmer_topk8", "route": "cuda", "source": src + "kmer_hash.cu",
          "replaces": "fpmash_tpu/ops/kmers_pallas.py:762",
          "launches": classic_launches["kmer:topk8"], **k5},

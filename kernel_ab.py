@@ -1,4 +1,4 @@
-"""Time kernels of checkouts of the port, in turns, on one card: K1, K5-K12 and K15.
+"""Time kernels of checkouts of the port, in turns, on one card: K1, K3, K5-K12, K14 and K15.
 
     python3 kernel_ab.py TREE_A TREE_B [--rounds 2]
 
@@ -16,7 +16,20 @@ at the main paths' shapes on inputs made from a fixed seed:
   packed windows F and R; and K15 on K6's masked planes of it at s = 1000
   as ``[4096, 4096]``, with ``torch.sort`` + ``gather`` of the same planes
   beside it (``sort_library_ms``);
-* the 512 000 shift windows of 100 of 256 reads of 2 000 bases (K1);
+* the 512 000 shift windows of 100 of 256 reads of 2 000 bases: K1, K3
+  (``factor_words`` ICFL_COMB), K14 (CFL_COMB) and the single-strand ICFL
+  and CFL passes of the same kernel;
+* ``chip_smoke.N_CHUNKS`` seeded chunks of ``chip_smoke.CHUNK_LEN`` = 300
+  characters, laid end to end as the ``fingerprint`` verb's generalized mode
+  ships them: K3 (ICFL_COMB) at the shape of its instance for rows of
+  256-1 023;
+* the lyn2vec golden FASTA's shift windows (reverse complements included,
+  as ``fingerprint --rev_comb true`` sends them), where the ten families' CLI
+  runs launch K14: CFL_COMB and CFL_ICFL_COMB-30 (the latter also at the
+  512 000 windows);
+* K3 and K14 also through ``factor_words``' C entry point alone
+  (``*_launch_ms``: no wrapper checks and no ``lengths.max()``, which waits
+  for the card), which times the kernel without the wrapper's host work;
 * BASELINE config 4's 10 100 sketches of s = 1000, made as
   ``chip_smoke._cluster_lists`` makes them: K9 at ``dist``'s 10 000 x 100
   and at one all-pairs tile (the first ``ops/compare._TILE_PAIRS // 10 000``
@@ -37,6 +50,7 @@ from pathlib import Path
 
 CHUNK, BASES, K_WIDE, K_NARROW = 1 << 24, 5_000_000, 21, 16
 ROOT = Path(__file__).resolve().parent
+GOLDEN_FASTA = ROOT / "tests" / "golden" / "lyn2vec_basic" / "example_transcripts_genes.fa"
 N_READS, READ_LEN, WINDOW = 256, 2000, 100
 
 
@@ -58,13 +72,23 @@ def _time_ms(fn, reps: int = 20) -> float:
 def worker(tree: Path) -> dict:
     """The times of one tree's kernels (run in a process of its own)."""
     sys.path.insert(0, str(ROOT))
-    from chip_smoke import BASE_SET, N_ALL, N_QRY, SKETCH, _cluster_lists
+    from chip_smoke import (
+        BASE_SET,
+        CHUNK_LEN,
+        N_ALL,
+        N_CHUNKS,
+        N_QRY,
+        SKETCH,
+        _chunk_stream,
+        _cluster_lists,
+        _factor_launch,
+    )
 
     sys.path.insert(0, str(tree))
     import numpy as np
     import torch
 
-    from fpmash_tpu_torch.ops import _build, compare_cuda, fused_cuda, kmers, sort_cuda
+    from fpmash_tpu_torch.ops import _build, compare_cuda, fused_cuda, icfl_cuda, kmers, sort_cuda
     from fpmash_tpu_torch.ops import kmers_cuda as kc
     from fpmash_tpu_torch.ops.compare import _TILE_PAIRS
     from fpmash_tpu_torch.ops.kmers import chunk_threshold
@@ -92,6 +116,11 @@ def worker(tree: Path) -> dict:
     flat = torch.from_numpy(doubled.reshape(-1).copy()).to(dev)
     starts = torch.from_numpy(starts.astype(np.int64)).to(dev)
     lengths = torch.full((starts.numel(),), WINDOW, dtype=torch.int32, device=dev)
+    chunks = _chunk_stream(np.random.default_rng(CHUNK_LEN), dev)
+    from fpmash_tpu_torch.models.fingerprint import extract_reads, window_stream
+
+    golden = window_stream([s for _, s in extract_reads(str(GOLDEN_FASTA), True)], shift=True)
+    golden = tuple(torch.from_numpy(a).to(dev) for a in golden[:3])
 
     mlo, mhi = kc.kmer_hashes_masked_planes(seq, chunk_threshold(CHUNK, K_WIDE, 1000)[0], BASES,
                                             k=K_WIDE)
@@ -124,6 +153,24 @@ def worker(tree: Path) -> dict:
         "k11_ms": _time_ms(lambda: kc.canonical_murmur(F, R, k=K_WIDE)),
         "k12_ms": _time_ms(lambda: kc.kmer_hashes_fused_planes(codes, k=K_WIDE)),
         "k1_ms": _time_ms(lambda: fused_cuda.fingerprint_hashes(flat, starts, lengths, 42)),
+        # K3 and K14: both strands, one strand, and the generalized mode's chunks
+        **{key: _time_ms(lambda f=family, a=fargs: icfl_cuda.factor_words(*a, f))
+           for key, family, fargs in (
+               ("k3_ms", "ICFL_COMB", (flat, starts, lengths)),
+               ("k14_ms", "CFL_COMB", (flat, starts, lengths)),
+               ("icfl_ms", "ICFL", (flat, starts, lengths)),
+               ("cfl_ms", "CFL", (flat, starts, lengths)),
+               ("k3_chunks_ms", "ICFL_COMB", chunks))},
+        # the same launches through the C entry point alone (no wrapper work)
+        "k3_launch_ms": _time_ms(_factor_launch((flat, starts, lengths), "ICFL_COMB")),
+        "k14_launch_ms": _time_ms(_factor_launch((flat, starts, lengths), "CFL_COMB")),
+        "k3_chunks_launch_ms": _time_ms(_factor_launch(chunks, "ICFL_COMB")),
+        # the CFL_ICFL base at the main shape, and K14 at the families' golden
+        "cfl_icfl_comb30_launch_ms": _time_ms(_factor_launch((flat, starts, lengths),
+                                                             "CFL_ICFL_COMB-30")),
+        "golden_cfl_comb_launch_ms": _time_ms(_factor_launch(golden, "CFL_COMB")),
+        "golden_cfl_icfl_comb30_launch_ms": _time_ms(_factor_launch(golden, "CFL_ICFL_COMB-30")),
+        "chunks": f"{N_CHUNKS} x {CHUNK_LEN}",
     }
 
 

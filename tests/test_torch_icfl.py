@@ -183,6 +183,83 @@ def test_factor_and_hash_kernels_match_plain_on_card(cuda_device, lo, hi):
             assert torch.equal(g, w), family
 
 
+def _route_case(case: str):
+    """Windows that take the kernel's staged route (shift windows: a block's
+    span fits its cap) and its device-memory route (shuffled, overlapping or
+    decreasing starts, rows of 129-1023, 300-character chunks), and a view
+    of the stream offset by 3 bytes."""
+    rng = np.random.default_rng(len(case))
+    if case in ("shift", "shuffled", "overlapping", "decreasing", "offset3"):
+        texts = _card_texts(rng, 40, 100, 400) + ["AC" * 150, "T" * 299 + "A"]
+        flat, starts, lengths, _ = window_stream(texts, shift=True)
+        if case == "shuffled":
+            order = rng.permutation(len(starts))
+            starts, lengths = starts[order], lengths[order]
+        elif case == "overlapping":
+            starts = np.sort(rng.integers(0, len(flat) - 100, size=len(starts)))
+        elif case == "decreasing":
+            starts, lengths = starts[::-1].copy(), lengths[::-1].copy()
+        return torch.from_numpy(flat), torch.from_numpy(starts), torch.from_numpy(lengths)
+    if case == "chunks300":
+        return _stream(_card_texts(rng, 2000, 300, 300))
+    widths = {"edges128": (127, 128, 129), "edges256": (255, 256, 1023)}[case]
+    texts = [t for w in widths for t in _card_texts(rng, 60, w, w)]
+    return _stream(texts + ["AC" * (widths[-1] // 2), "T" * (widths[-1] - 1) + "A"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["shift", "shuffled", "overlapping", "decreasing", "offset3",
+                                  "chunks300", "edges128", "edges256"])
+def test_factor_words_routes_match_plain_on_card(cuda_device, case):
+    args = [t.to(cuda_device) for t in _route_case(case)]
+    if case == "offset3":
+        args[0] = torch.cat([torch.zeros(3, dtype=torch.uint8, device=cuda_device), args[0]])[3:]
+        assert args[0].data_ptr() % 16 == 3  # a view that is not 16-byte aligned
+    for family in FAMILY_PLANS:
+        words, ok = icfl_cuda.factor_words(*args, family)
+        want_words, want_ok = icfl_cuda.factor_words_plain(*args, family)
+        torch.cuda.synchronize()
+        assert torch.equal(ok, want_ok) and bool(ok.all()), (case, family)
+        assert torch.equal(words, want_words), (case, family)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["CFL_COMB", "ICFL_COMB", "CFL_ICFL_COMB-10"])
+def test_factor_words_flags_rows_on_card(cuda_device, family):
+    """Windows outside the stream (through the wrapper) and windows wider
+    than 32 W (through the C entry point with W = 2): zero words, ok 0."""
+    from fpmash_tpu_torch.ops._build import check, library
+    from fpmash_tpu_torch.ops.factorize import plan
+
+    texts = _card_texts(np.random.default_rng(5), 64, 1, 100)
+    flat, starts, lengths = (t.to(cuda_device) for t in _stream(texts))
+    N = flat.numel()
+    bad_starts = torch.cat([starts, torch.tensor([N - 2, -1, N, N - 100], device=cuda_device)])
+    bad_lengths = torch.cat([lengths, torch.tensor([3, 5, 1, 100], dtype=torch.int32,
+                                                   device=cuda_device)])
+    words, ok = icfl_cuda.factor_words(flat, bad_starts, bad_lengths, family)
+    want_words, want_ok = icfl_cuda.factor_words_plain(flat, bad_starts, bad_lengths, family)
+    assert torch.equal(words, want_words) and torch.equal(ok, want_ok)
+    assert ok.tolist()[-4:] == [False, False, False, True]
+
+    base, threshold, comb = plan(family)
+    W = 2
+    words = torch.full((len(texts), W), -1, dtype=torch.int32, device=cuda_device)
+    ok = torch.full((len(texts),), True, device=cuda_device)
+    code = library().fpmash_factor_words(
+        flat.data_ptr(), N, starts.data_ptr(), lengths.data_ptr(), len(texts),
+        {"cfl": 0, "icfl": 1, "cfl_icfl": 2}[base], threshold or 0, int(comb),
+        int(lengths.max()), words.data_ptr(), W, ok.data_ptr(),
+        torch.cuda.current_stream(cuda_device).cuda_stream)
+    check(code, "factor_words kernel launch")
+    torch.cuda.synchronize()
+    narrow = lengths <= 32 * W
+    assert torch.equal(ok, narrow)
+    assert not words[~narrow].any()
+    want, _ = icfl_cuda.factor_words_plain(flat, starts, lengths, family)
+    assert torch.equal(words[narrow], want[narrow][:, :W])
+
+
 @pytest.mark.gpu
 def test_hash_kernel_matches_plain_on_random_words(cuda_device):
     rng = np.random.default_rng(77)
