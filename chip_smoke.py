@@ -36,8 +36,9 @@ from their phases, which name the ``entry_point``; exact-match errors;
 kernel and plain times at one shape, for K9 ``dist``'s with its ``pairs``
 and its 10^8-pair time beside it; each kernel's bound, the least time the
 card could take for its work, from its bytes and integer operations at that
-shape; for K15 the time of ``torch.sort`` and ``gather``; for K3 and K14
-the time of their C entry point alone (``launch_ms``) beside the wrapper's,
+shape; for K15 the time of ``torch.sort`` and ``gather``; for K1, K3, K13
+and K14 the time of their C entry point alone (``launch_ms``) beside the
+wrapper's, K13's under dna16 beside byte4 (``dna16_ms``, ``dna16_launch_ms``),
 and their times at the generalized mode's 300-character chunks, at the
 golden's windows and with every window the same), the
 card's ``name, power.limit`` as ``nvidia-smi`` gives them, and
@@ -183,7 +184,55 @@ def _factor_launch(args, family: str):
             icfl_cuda._BASES[base], threshold or 0, int(comb), max_len, words.data_ptr(), W,
             ok.data_ptr(), torch.cuda.current_stream(args[0].device).cuda_stream)
     check(fn(*call), f"factor_words {family} launch")
-    return lambda: fn(*call)
+    return lambda keep=(words, ok): fn(*call)  # the outputs live as long as the call
+
+
+def _fingerprint_launch(args):
+    """A call of K1's C entry point alone for ``args`` (outputs allocated
+    once, no checks): times the kernel without the wrapper's host work."""
+    import torch
+
+    from fpmash_tpu_torch.ops._build import check, library
+
+    flat, starts, lengths = args
+    B = starts.numel()
+    outs = [torch.empty(B, dtype=dt, device=flat.device)
+            for dt in (torch.int64, torch.int64, torch.int32)]
+    fn = library().fpmash_fingerprint
+    call = (flat.data_ptr(), flat.numel(), starts.data_ptr(), lengths.data_ptr(), B, 42,
+            *(o.data_ptr() for o in outs), torch.cuda.current_stream(flat.device).cuda_stream)
+    check(fn(*call), "fingerprint launch")
+    return lambda keep=outs: fn(*call)
+
+
+def _fingerprint_rows_launch(rows, lengths, pack: str):
+    """A call of K13's C entry point alone for ``int32`` ``lengths`` of
+    ``rows`` under ``pack`` (outputs allocated once; no checks and no
+    ``aminmax`` of the lengths, which waits for the card)."""
+    import torch
+
+    from fpmash_tpu_torch.ops import fused_cuda
+    from fpmash_tpu_torch.ops._build import check, library
+
+    B, L = rows.shape
+    outs = [torch.empty(B, dtype=dt, device=rows.device)
+            for dt in (torch.int64, torch.int64, torch.int32)]
+    fn = library().fpmash_fingerprint_rows
+    call = (rows.data_ptr(), B, L, lengths.data_ptr(), fused_cuda.PACKS[pack], 42,
+            *(o.data_ptr() for o in outs), torch.cuda.current_stream(rows.device).cuda_stream)
+    check(fn(*call), f"fingerprint rows {pack} launch")
+    return lambda keep=outs: fn(*call)
+
+
+def _load_model(name: str):
+    """A numpy model of a kernel's steps from ``tests/`` (its JAX imports
+    sit inside its JAX tests, so loading it loads no JAX)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, ROOT / "tests" / f"test_torch_{name}.py")
+    model = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(model)
+    return model
 
 
 def _factor_steps(args, family: str, pick) -> float:
@@ -192,15 +241,20 @@ def _factor_steps(args, family: str, pick) -> float:
     which imports JAX only inside its JAX tests) counts them: Duval steps,
     ICFL scan, chain and merge steps.  A count, not a measurement: it is
     printed beside the times and kept out of the ``kernels`` line."""
-    import importlib.util
-
-    spec = importlib.util.spec_from_file_location(
-        "factor_body_model", ROOT / "tests" / "test_torch_factor_body.py")
-    model = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(model)
     flat, starts, lengths = (a.cpu().numpy() for a in args)
-    _, _, steps, _ = model.factor_words_model(flat, starts[pick], lengths[pick], family)
+    _, _, steps, _ = _load_model("factor_body").factor_words_model(flat, starts[pick],
+                                                                   lengths[pick], family)
     return sum(steps.values()) / max(int(lengths[pick].sum()), 1)
+
+
+def _fingerprint_steps(args, pick) -> float:
+    """Duval steps a character of K1 on the windows ``pick``, as the numpy
+    model of csrc/fingerprint.cu (tests/test_torch_fingerprint_body.py)
+    counts them.  A count, not a measurement: printed, not recorded."""
+    flat, starts, lengths = (a.cpu().numpy() for a in args)
+    steps = _load_model("fingerprint_body").fingerprint_model(flat, starts[pick],
+                                                              lengths[pick])[3]
+    return steps["duval"] / max(int(lengths[pick].sum()), 1)
 
 
 def phase_k1(dev, rng):
@@ -480,6 +534,7 @@ def phase_main_shapes(dev, work: Path, seqs_a):
     k1 = {
         "max_abs_err": _max_abs_err(zip(got, want)),
         "ms": _time_ms(lambda: fused_cuda.fingerprint_hashes(*k1_args, 42), 50),
+        "launch_ms": _time_ms(_fingerprint_launch(k1_args), 50),
         "plain_ms": _time_ms(lambda: fused_cuda.fingerprint_hashes_plain(*k1_args, 42), 3),
         # the stream, starts and lengths in, h1, h2 and count out; Duval reads
         # each character once, then MurmurHash3 of the factor lengths
@@ -505,6 +560,19 @@ def phase_main_shapes(dev, work: Path, seqs_a):
         "plain_ms": _time_ms(lambda: walk_cuda.pairwise_walk_plain(*k2_args), 3),
         **_bound(_lists_bytes(k2_args[0], k2_args[2]), 3 * int(steps.sum())),
     }
+    sample = np.random.default_rng(8).choice(len(starts), 256, replace=False)
+    per_char = _fingerprint_steps(k1_args, sample)
+    chars = int(k1_args[2].sum())
+    # lanes in step: every window the same 100 characters (divergence measured)
+    same = (k1_args[0], torch.full_like(starts, int(starts[0])), k1_args[2])
+    k1["same_window"] = {"launch_ms": _time_ms(_fingerprint_launch(same), 50)}
+    same_per_char = _fingerprint_steps(same, [0])
+    print(f"main-path shapes: K1 {k1['launch_ms']:.4f} ms through the C entry point alone; "
+          f"{per_char:.4f} Duval steps a character (counted by the numpy model on 256 "
+          f"windows): {k1['launch_ms'] * 1e6 / (chars * per_char):.6f} ns of the card a step; "
+          f"every window the same: {k1['same_window']['launch_ms']:.4f} ms, "
+          f"{same_per_char:.4f} steps a character, "
+          f"{k1['same_window']['launch_ms'] * 1e6 / (chars * same_per_char):.6f} ns a step")
     print(f"main-path shapes: K1 at {len(starts)} windows kernel {k1['ms']:.4f} ms, plain "
           f"{k1['plain_ms']:.4f} ms; K2 at {len(ref)}x{len(qry)} sketches of "
           f"{k2_args[0].shape[1]} kernel {k2['ms']:.4f} ms, plain {k2['plain_ms']:.4f} ms; "
@@ -1694,7 +1762,9 @@ def phase_k13_main_shapes(dev, seqs_a):
     before and read just after.  Under both packs (the reads are pure ACGT)
     it must equal K1's ``(h1, h2, count)`` of the same windows, its plain
     version on every row, and the split variant of the same entry point (K1
-    on the rows).  Returns K13's record, timed under byte4."""
+    on the rows).  Returns K13's record: ``ms`` under byte4, ``dna16_ms``
+    beside it, and both through the C entry point alone (``launch_ms``,
+    ``dna16_launch_ms``)."""
     import torch
 
     from fpmash_tpu_torch.ops import fused_cuda
@@ -1722,9 +1792,14 @@ def phase_k13_main_shapes(dev, seqs_a):
         err = max(err, _max_abs_err(zip(g, want)))
     ms = {pack: _time_ms(lambda p=pack: fused_cuda.fingerprint_hashes_fused(
         rows, lengths, 42, p, "inline"), 50) for pack in fused_cuda.PACKS}
+    launch = {pack: _time_ms(_fingerprint_rows_launch(rows, lengths, pack), 50)
+              for pack in fused_cuda.PACKS}
     rec = {
         "max_abs_err": err,
         "ms": ms["byte4"],
+        "dna16_ms": ms["dna16"],
+        "launch_ms": launch["byte4"],
+        "dna16_launch_ms": launch["dna16"],
         "plain_ms": _time_ms(lambda: fused_cuda.fingerprint_hashes_fused_plain(
             rows, lengths, 42, "byte4"), 3),
         # rows and lengths in, h1, h2 and count out; Duval reads each
@@ -1735,7 +1810,8 @@ def phase_k13_main_shapes(dev, seqs_a):
     }
     print(f"main-path shapes: K13 (fingerprint_hashes_fused inline) at {B} rows of {WINDOW} "
           f"equal to K1, to the split variant and to its plain version under byte4 and dna16; "
-          f"kernel byte4 {ms['byte4']:.4f} ms, dna16 {ms['dna16']:.4f} ms, plain "
+          f"kernel byte4 {ms['byte4']:.4f} ms, dna16 {ms['dna16']:.4f} ms (C entry point "
+          f"alone {launch['byte4']:.4f} and {launch['dna16']:.4f} ms), plain "
           f"{rec['plain_ms']:.4f} ms; launches {launches}")
     return rec
 

@@ -70,6 +70,12 @@ struct Murmur64 {
     ++count;
   }
 
+  // Two values at once, on an even count: one block update, no parity branch.
+  __device__ __forceinline__ void add_pair(uint64_t a, uint64_t b) {
+    murmur_block(h1, h2, a, b);
+    count += 2;
+  }
+
   // The closing mix; h1 and h2 hold the hash afterwards.
   __device__ __forceinline__ void finish() {
     if (count & 1) h1 ^= mix_k1(k1);

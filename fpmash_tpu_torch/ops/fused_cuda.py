@@ -22,7 +22,8 @@ compares raw bytes; ``dna16`` compares C, G, T as 1, 2, 3 and every other
 byte as 0, so an ``N`` compares like an ``A``) and ``variant``:
 ``"split"`` ships the rows as a window stream to K1, ``"inline"`` launches
 K13, which reads the rows in place (``csrc/fingerprint.cu``, one body for
-both).  ``INLINE_LAUNCHES`` counts K13's launches.
+both: a block's rows are staged once, dna16 mapped at staging).
+``INLINE_LAUNCHES`` counts K13's launches.
 """
 
 from __future__ import annotations
@@ -113,8 +114,10 @@ def _check_rows(batch, lengths, pack: str, variant: str):
         raise ValueError(f"unknown pack mode {pack!r}")
     if variant not in ("split", "inline"):
         raise ValueError(f"unknown variant {variant!r}")
-    if lengths.numel() and not (0 <= int(lengths.min()) and int(lengths.max()) <= batch.shape[1]):
-        raise ValueError(f"lengths must lie in [0, {batch.shape[1]}]")
+    if lengths.numel():
+        lo, hi = torch.stack(torch.aminmax(lengths)).tolist()  # one wait for the card
+        if not 0 <= lo <= hi <= batch.shape[1]:
+            raise ValueError(f"lengths must lie in [0, {batch.shape[1]}]")
 
 
 def _packed_rows(batch, pack: str):

@@ -1,4 +1,4 @@
-"""Time kernels of checkouts of the port, in turns, on one card: K1, K3, K5-K12, K14 and K15.
+"""Time kernels of checkouts of the port, in turns, on one card: K1, K3, K5-K15.
 
     python3 kernel_ab.py TREE_A TREE_B [--rounds 2]
 
@@ -18,7 +18,9 @@ at the main paths' shapes on inputs made from a fixed seed:
   beside it (``sort_library_ms``);
 * the 512 000 shift windows of 100 of 256 reads of 2 000 bases: K1, K3
   (``factor_words`` ICFL_COMB), K14 (CFL_COMB) and the single-strand ICFL
-  and CFL passes of the same kernel;
+  and CFL passes of the same kernel; and the same windows as ``[512 000,
+  100]`` rows, K13 (``fingerprint_hashes_fused(variant="inline")``) under
+  byte4 and dna16;
 * ``chip_smoke.N_CHUNKS`` seeded chunks of ``chip_smoke.CHUNK_LEN`` = 300
   characters, laid end to end as the ``fingerprint`` verb's generalized mode
   ships them: K3 (ICFL_COMB) at the shape of its instance for rows of
@@ -27,9 +29,10 @@ at the main paths' shapes on inputs made from a fixed seed:
   as ``fingerprint --rev_comb true`` sends them), where the ten families' CLI
   runs launch K14: CFL_COMB and CFL_ICFL_COMB-30 (the latter also at the
   512 000 windows);
-* K3 and K14 also through ``factor_words``' C entry point alone
-  (``*_launch_ms``: no wrapper checks and no ``lengths.max()``, which waits
-  for the card), which times the kernel without the wrapper's host work;
+* K1, K3, K13 and K14 also through their C entry points alone
+  (``*_launch_ms``: no wrapper checks, allocations or waits for the card,
+  such as ``factor_words``' ``lengths.max()`` and K13's ``aminmax``), which
+  times the kernel without the wrapper's host work;
 * BASELINE config 4's 10 100 sketches of s = 1000, made as
   ``chip_smoke._cluster_lists`` makes them: K9 at ``dist``'s 10 000 x 100
   and at one all-pairs tile (the first ``ops/compare._TILE_PAIRS // 10 000``
@@ -82,6 +85,8 @@ def worker(tree: Path) -> dict:
         _chunk_stream,
         _cluster_lists,
         _factor_launch,
+        _fingerprint_launch,
+        _fingerprint_rows_launch,
     )
 
     sys.path.insert(0, str(tree))
@@ -116,6 +121,7 @@ def worker(tree: Path) -> dict:
     flat = torch.from_numpy(doubled.reshape(-1).copy()).to(dev)
     starts = torch.from_numpy(starts.astype(np.int64)).to(dev)
     lengths = torch.full((starts.numel(),), WINDOW, dtype=torch.int32, device=dev)
+    windows = flat[starts[:, None] + torch.arange(WINDOW, device=dev)].contiguous()
     chunks = _chunk_stream(np.random.default_rng(CHUNK_LEN), dev)
     from fpmash_tpu_torch.models.fingerprint import extract_reads, window_stream
 
@@ -153,6 +159,12 @@ def worker(tree: Path) -> dict:
         "k11_ms": _time_ms(lambda: kc.canonical_murmur(F, R, k=K_WIDE)),
         "k12_ms": _time_ms(lambda: kc.kmer_hashes_fused_planes(codes, k=K_WIDE)),
         "k1_ms": _time_ms(lambda: fused_cuda.fingerprint_hashes(flat, starts, lengths, 42)),
+        "k1_launch_ms": _time_ms(_fingerprint_launch((flat, starts, lengths))),
+        # K13 on the same windows as rows, through the wrapper and the C entry point
+        **{f"k13_{pack}_ms": _time_ms(lambda p=pack: fused_cuda.fingerprint_hashes_fused(
+            windows, lengths, 42, p, "inline")) for pack in ("byte4", "dna16")},
+        **{f"k13_{pack}_launch_ms": _time_ms(_fingerprint_rows_launch(windows, lengths, pack))
+           for pack in ("byte4", "dna16")},
         # K3 and K14: both strands, one strand, and the generalized mode's chunks
         **{key: _time_ms(lambda f=family, a=fargs: icfl_cuda.factor_words(*a, f))
            for key, family, fargs in (
@@ -196,7 +208,10 @@ def main() -> int:
         order += args.trees + args.trees[::-1]
     for tree in order:
         out = subprocess.run([sys.executable, __file__, "--worker", str(tree)],
-                             capture_output=True, text=True, check=True)
+                             capture_output=True, text=True)
+        if out.returncode != 0:
+            print(out.stderr[-4000:], file=sys.stderr)
+            raise RuntimeError(f"the run of {tree} failed (exit {out.returncode})")
         print(out.stdout.strip().splitlines()[-1], flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)

@@ -235,3 +235,112 @@ def test_fused_entry_point_kernels_match_plain_on_card(cuda_device, pack):
         assert (fused_cuda.LAUNCHES, fused_cuda.INLINE_LAUNCHES) == tuple(
             b + s for b, s in zip(before, step))
         assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+# ---------------------------------------------------------------------- #
+# the kernels' routes on a card (csrc/fingerprint.cu; its steps are
+# modelled in tests/test_torch_fingerprint_body.py)
+# ---------------------------------------------------------------------- #
+
+
+def _shift_windows(seed: int, read_lens, alphabet: bytes = b"ACGT"):
+    """Shift windows of reads as models/sketch.py ships them: reads of 100
+    or more give a window of 100 per base, shorter ones one window."""
+    from fpmash_tpu_torch.models.fingerprint import window_stream
+
+    rng = np.random.default_rng(seed)
+    lut = np.frombuffer(alphabet, np.uint8)
+    texts = [lut[rng.integers(0, len(lut), size=int(n))].tobytes().decode("latin-1")
+             for n in read_lens]
+    flat, starts, lengths, _ = window_stream(texts, shift=True)
+    return flat, starts, lengths
+
+
+def _k1_matches_plain(flat, starts, lengths):
+    before = fused_cuda.LAUNCHES
+    got = fused_cuda.fingerprint_hashes(flat, starts, lengths, 42)
+    assert fused_cuda.LAUNCHES == before + 1
+    want = fused_cuda.fingerprint_hashes_plain(flat, starts, lengths, 42)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    return got
+
+
+@pytest.mark.gpu
+def test_k1_shift_windows_across_blocks_and_reads_on_card(cuda_device):
+    """Staged blocks: windows across block edges, read boundaries inside
+    blocks, reads under 100 bases and of one base, N and bytes >= 0x80."""
+    read_lens = [300, 99, 1, 517, 40, 100, 2, 2000, 257, 101]
+    flat, starts, lengths = _shift_windows(41, read_lens, b"ACGTN\x80\xfe")
+    args = [torch.from_numpy(a).to(cuda_device) for a in (flat, starts, lengths)]
+    got = _k1_matches_plain(*args)
+    assert bool((got[2] > 0).all())  # every window lies inside the stream
+
+
+@pytest.mark.gpu
+def test_k1_spans_over_the_cap_on_card(cuda_device):
+    """Device-memory route: shuffled starts of a long stream, whole reads of
+    300-5 000 bases, and blocks that mix staged and unstaged windows."""
+    flat, starts, lengths = _shift_windows(42, [3000, 2500, 1800])
+    order = np.random.default_rng(42).permutation(len(starts))
+    flat_t = torch.from_numpy(flat).to(cuda_device)
+    _k1_matches_plain(flat_t, torch.from_numpy(starts[order]).to(cuda_device),
+                      torch.from_numpy(lengths[order]).to(cuda_device))
+    rng = np.random.default_rng(43)
+    reads = [np.frombuffer(b"ACGTN", np.uint8)[rng.integers(0, 5, size=n)]
+             for n in (300, 5000, 129, 128, 1024, 2, 4000)]
+    whole = np.concatenate(reads)
+    first = np.cumsum([0] + [len(r) for r in reads[:-1]]).astype(np.int64)
+    lens = np.array([len(r) for r in reads], np.int32)
+    _k1_matches_plain(*(torch.from_numpy(a).to(cuda_device) for a in (whole, first, lens)))
+    # 300 windows of one long read at stride 7, then shift windows: mixed blocks
+    mixed_starts = np.concatenate([np.arange(300, dtype=np.int64) * 7, first[:3]])
+    mixed_lens = np.concatenate([np.full(300, 100, np.int32), lens[:3]])
+    _k1_matches_plain(*(torch.from_numpy(a).to(cuda_device)
+                        for a in (whole, mixed_starts, mixed_lens)))
+
+
+@pytest.mark.gpu
+def test_k1_unaligned_stream_on_card(cuda_device):
+    """A stream whose base is not 16-byte aligned (``flat[1:]``, contiguous),
+    with windows at its very start and end and outside it."""
+    flat, starts, lengths = _shift_windows(44, [700, 450, 60])
+    buf = torch.from_numpy(np.concatenate([[7], flat]).astype(np.uint8)).to(cuda_device)
+    view = buf[1:]
+    assert view.is_contiguous() and view.data_ptr() % 16 == 1
+    starts = np.concatenate([starts, [0, len(flat) - 5, len(flat) - 4, -3]]).astype(np.int64)
+    lengths = np.concatenate([lengths, [len(flat), 5, 9, 2]]).astype(np.int32)
+    got = _k1_matches_plain(view, torch.from_numpy(starts).to(cuda_device),
+                            torch.from_numpy(lengths).to(cuda_device))
+    assert got[2][-2:].tolist() == [-1, -1]
+
+
+def _k13_matches_plain(batch, n, pack):
+    before = fused_cuda.INLINE_LAUNCHES
+    got = fused_cuda.fingerprint_hashes_fused(batch, n, 42, pack, "inline")
+    assert fused_cuda.INLINE_LAUNCHES == before + 1
+    want = fused_cuda.fingerprint_hashes_fused_plain(batch, n, 42, pack)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pack", ["byte4", "dna16"])
+def test_k13_rows_routes_on_card(cuda_device, pack):
+    """Rows of 100 (B = 1 001, not a multiple of any block; B = 1), an
+    unaligned rows pointer, rows wider than the cap (129 and 300: device
+    memory, dna16 mapped at the read) and of width 1; N, lower case and
+    other bytes, which dna16 compares as A."""
+    rng = np.random.default_rng(45)
+    for width, B in ((100, 1001), (100, 1), (129, 300), (300, 257), (1, 40)):
+        arr = np.frombuffer(b"ACGTNacgtRY\x00\xff", np.uint8)[
+            rng.integers(0, 13, size=(B, width))].copy()
+        arr[: B // 3] = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, size=(B // 3, width))]
+        lens = rng.integers(0, width + 1, size=B).astype(np.int32)
+        lens[: B // 2] = width
+        n = torch.from_numpy(lens).to(cuda_device)
+        _k13_matches_plain(torch.from_numpy(arr).to(cuda_device), n, pack)
+        buf = torch.from_numpy(np.concatenate([[0, 0, 0], arr.reshape(-1)]).astype(np.uint8))
+        view = buf.to(cuda_device)[3:].view(B, width)
+        assert view.is_contiguous() and view.data_ptr() % 16 == 3
+        _k13_matches_plain(view, n, pack)

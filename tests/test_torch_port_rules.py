@@ -101,6 +101,22 @@ def test_chip_smoke_step_count_loads_no_jax():
     assert _new_jax_modules(_SMOKE_STEPS) == []
 
 
+_SMOKE_FP_STEPS = """
+import numpy as np, torch
+import chip_smoke
+flat = torch.from_numpy(np.frombuffer(b"ACGTTGCAACGTAC" * 40, np.uint8).copy())
+starts = torch.arange(0, 400, 7, dtype=torch.int64)
+lengths = torch.full_like(starts, 100, dtype=torch.int32)
+assert chip_smoke._fingerprint_steps((flat, starts, lengths), [0, 1, 2]) > 1
+"""
+
+
+def test_chip_smoke_fingerprint_step_count_loads_no_jax():
+    """``chip_smoke.py`` counts K1's Duval steps with the numpy model of
+    tests/test_torch_fingerprint_body.py; doing so loads no JAX."""
+    assert _new_jax_modules(_SMOKE_FP_STEPS) == []
+
+
 @pytest.mark.parametrize("verb", ["triangle", "screen"])
 def test_comparison_verbs_default_to_cuda(monkeypatch, golden_dir, verb):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
