@@ -34,11 +34,14 @@ The last three lines of standard output are the kernels' JSON record
 ``factor_words`` from the families' CLI runs, for the five unrouted kernels
 from their phases, which name the ``entry_point``; exact-match errors;
 kernel and plain times at one shape, for K9 ``dist``'s with its ``pairs``
-and its 10^8-pair time beside it; each kernel's bound, the least time the
-card could take for its work, from its bytes and integer operations at that
-shape; for K15 the time of ``torch.sort`` and ``gather``; for K1, K3, K13
-and K14 the time of their C entry point alone (``launch_ms``) beside the
-wrapper's, K13's under dna16 beside byte4 (``dna16_ms``, ``dna16_launch_ms``),
+and its 10^8-pair time beside it, for K2 the CFL path's 256 x 256 sketches
+with its 10^8-pair time and bound (``all_pairs_ms``, ``all_pairs_bound_ms``)
+and its random lists (``random_lists``) beside it; each kernel's bound, the
+least time the card could take for its work, from its bytes and integer
+operations at that shape; for K15 the time of ``torch.sort`` and
+``gather``; for K1-K4, K13 and K14 the time of their C entry point alone
+(``launch_ms``) beside the wrapper's, K13's under dna16 beside byte4
+(``dna16_ms``, ``dna16_launch_ms``),
 and their times at the generalized mode's 300-character chunks, at the
 golden's windows and with every window the same), the
 card's ``name, power.limit`` as ``nvidia-smi`` gives them, and
@@ -224,6 +227,54 @@ def _fingerprint_rows_launch(rows, lengths, pack: str):
     return lambda keep=outs: fn(*call)
 
 
+def _walk_launch(ref, ref_len, qry, qry_len, s: int):
+    """A call of K2's C entry point alone for these lists (outputs allocated
+    once, no checks): times the kernel without the wrapper's host work."""
+    import torch
+
+    from fpmash_tpu_torch.ops._build import check, library
+
+    (R, S1), (Q, S2) = ref.shape, qry.shape
+    outs = [torch.empty((R, Q), dtype=torch.int32, device=ref.device) for _ in range(2)]
+    fn = library().fpmash_walk
+    call = (ref.data_ptr(), ref_len.data_ptr(), R, S1, qry.data_ptr(), qry_len.data_ptr(), Q, S2,
+            min(s, 2**31 - 1), *(o.data_ptr() for o in outs),
+            torch.cuda.current_stream(ref.device).cuda_stream)
+    check(fn(*call), "walk launch")
+    return lambda keep=outs: fn(*call)
+
+
+def _walk_ops(ref_len, qry_len, s: int) -> int:
+    """K2's operations: a walk runs at least min(s, la, lb) steps, a 64-bit
+    compare and a count each (3 operations)."""
+    import torch
+
+    la = ref_len.long().clamp(min=0).clamp(max=s)
+    lb = qry_len.long().clamp(min=0).clamp(max=s)
+    # sum over pairs of min(la, lb), by sorting one side
+    lb_sorted = torch.sort(lb).values
+    below = torch.cumsum(lb_sorted, 0)
+    k = torch.searchsorted(lb_sorted, la, right=True)
+    total = torch.where(k > 0, below[(k - 1).clamp(min=0)], 0) + la * (lb.numel() - k)
+    return 3 * int(total.sum())
+
+
+def _hash_words_launch(words, lengths):
+    """A call of K4's C entry point alone (outputs allocated once, no checks)."""
+    import torch
+
+    from fpmash_tpu_torch.ops._build import check, library
+
+    B, W = words.shape
+    outs = [torch.empty(B, dtype=dt, device=words.device)
+            for dt in (torch.int64, torch.int64, torch.int32)]
+    fn = library().fpmash_hash_words
+    call = (words.data_ptr(), W, lengths.data_ptr(), B, 42, *(o.data_ptr() for o in outs),
+            torch.cuda.current_stream(words.device).cuda_stream)
+    check(fn(*call), "hash_words launch")
+    return lambda keep=outs: fn(*call)
+
+
 def _load_model(name: str):
     """A numpy model of a kernel's steps from ``tests/`` (its JAX imports
     sit inside its JAX tests, so loading it loads no JAX)."""
@@ -312,7 +363,8 @@ def phase_k1(dev, rng):
 
 def phase_k2(dev, rng):
     """K2 against its plain version at 256 x 256 pairs of unsorted lists of
-    2 000 hashes, s = 1000.  Returns the largest error."""
+    2 000 hashes, s = 1000, 16 rows of each side cut short.  Returns the
+    largest error and K2's times and bound at this shape."""
     import numpy as np
     import torch
 
@@ -344,13 +396,20 @@ def phase_k2(dev, rng):
     if int(got[0].sum()) == 0:
         raise AssertionError("K2 test lists share no elements; the check would be vacuous")
     err = _max_abs_err(zip(got, want))
-    ms = _time_ms(lambda: walk_cuda.pairwise_walk(*args), 20)
-    plain_ms = _time_ms(lambda: walk_cuda.pairwise_walk_plain(*args), 3)
+    rec = {
+        "shape": f"{n} x {n} lists of {width}, s = {s}",
+        "ms": _time_ms(lambda: walk_cuda.pairwise_walk(*args), 20),
+        "launch_ms": _time_ms(_walk_launch(*args), 20),
+        "plain_ms": _time_ms(lambda: walk_cuda.pairwise_walk_plain(*args), 3),
+        "bound_ms": _bound(_lists_bytes(args[0], args[2]), _walk_ops(args[1], args[3], s))[
+            "bound_ms"],
+    }
     print(
-        f"K2 walk: {n}x{n} pairs of {width}-hash lists, s={s}, equal to the plain "
-        f"version; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+        f"K2 walk: {rec['shape']}, equal to the plain version; kernel {rec['ms']:.4f} ms "
+        f"({rec['launch_ms']:.4f} ms through the C entry point), plain {rec['plain_ms']:.4f} "
+        f"ms, bound {rec['bound_ms']:.4f} ms"
     )
-    return err
+    return err, rec
 
 
 def phase_golden(work: Path):
@@ -552,13 +611,12 @@ def phase_main_shapes(dev, work: Path, seqs_a):
     want = walk_cuda.pairwise_walk_plain(*k2_args)
     if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
         raise AssertionError("K2 differs from the plain version on the dist sketches")
-    # a walk runs at least min(s, la, lb) steps: a 64-bit compare and a count each
-    steps = torch.minimum(k2_args[1].long()[:, None], k2_args[3].long()[None, :]).clamp(0, s)
     k2 = {
         "max_abs_err": _max_abs_err(zip(got, want)),
         "ms": _time_ms(lambda: walk_cuda.pairwise_walk(*k2_args), 50),
+        "launch_ms": _time_ms(_walk_launch(*k2_args), 50),
         "plain_ms": _time_ms(lambda: walk_cuda.pairwise_walk_plain(*k2_args), 3),
-        **_bound(_lists_bytes(k2_args[0], k2_args[2]), 3 * int(steps.sum())),
+        **_bound(_lists_bytes(k2_args[0], k2_args[2]), _walk_ops(k2_args[1], k2_args[3], s)),
     }
     sample = np.random.default_rng(8).choice(len(starts), 256, replace=False)
     per_char = _fingerprint_steps(k1_args, sample)
@@ -575,7 +633,8 @@ def phase_main_shapes(dev, work: Path, seqs_a):
           f"{k1['same_window']['launch_ms'] * 1e6 / (chars * same_per_char):.6f} ns a step")
     print(f"main-path shapes: K1 at {len(starts)} windows kernel {k1['ms']:.4f} ms, plain "
           f"{k1['plain_ms']:.4f} ms; K2 at {len(ref)}x{len(qry)} sketches of "
-          f"{k2_args[0].shape[1]} kernel {k2['ms']:.4f} ms, plain {k2['plain_ms']:.4f} ms; "
+          f"{k2_args[0].shape[1]} kernel {k2['ms']:.4f} ms ({k2['launch_ms']:.4f} ms through "
+          f"the C entry point), plain {k2['plain_ms']:.4f} ms, bound {k2['bound_ms']:.4f} ms; "
           "both equal to the plain versions")
     return k1, k2
 
@@ -873,6 +932,7 @@ def phase_icfl_main_shapes(dev, work: Path, seqs_a):
     out["k4"] = {
         "max_abs_err": _max_abs_err(zip(got, want)),
         "ms": _time_ms(lambda: icfl_cuda.hash_words(words, args[2], 42), 50),
+        "launch_ms": _time_ms(_hash_words_launch(words, args[2]), 50),
         "plain_ms": _time_ms(lambda: icfl_cuda.hash_words_plain(words, args[2], 42), 3),
         # words and lengths in, h1, h2 and count out; one operation a word to
         # find the boundaries, then MurmurHash3 of the factor lengths
@@ -903,7 +963,9 @@ def phase_icfl_main_shapes(dev, work: Path, seqs_a):
     print(f"main-path shapes: at {len(args[1])} windows K3 (factor_words ICFL_COMB) kernel "
           f"{out['k3']['ms']:.4f} ms, plain {out['k3']['plain_ms']:.4f} ms; K14 (factor_words "
           f"CFL_COMB) kernel {out['k14']['ms']:.4f} ms, plain {out['k14']['plain_ms']:.4f} ms; "
-          f"K4 (hash_words) kernel {out['k4']['ms']:.4f} ms, plain {out['k4']['plain_ms']:.4f} ms;"
+          f"K4 (hash_words) kernel {out['k4']['ms']:.4f} ms ({out['k4']['launch_ms']:.4f} ms "
+          f"through the C entry point), plain {out['k4']['plain_ms']:.4f} ms, bound "
+          f"{out['k4']['bound_ms']:.4f} ms;"
           " all equal to the plain versions")
     return out["k3"], out["k4"], out["k14"]
 
@@ -1575,7 +1637,7 @@ def phase_config4(dev, rng, work: Path):
     pairs against K2's walk on the card (equal to the literal walk on
     sorted distinct lists), and samples of the CLI lines against the
     literal walk and ``compare_fingerprints``.  Returns the launches, K9's
-    record at this shape, and the walls."""
+    record at this shape, K2's times and bound at the 10^8 pairs, and the walls."""
     import dataclasses
     import io
 
@@ -1722,16 +1784,23 @@ def phase_config4(dev, rng, work: Path):
                                                torch.from_numpy(denom)))["bound_ms"],
         "all_pairs": N_ALL ** 2,
     }
-    walk_ms = _time_ms(lambda: walk_cuda.pairwise_walk(*args), 2)
+    k2 = {
+        "all_pairs_ms": _time_ms(lambda: walk_cuda.pairwise_walk(*args), 2),
+        "all_pairs_launch_ms": _time_ms(_walk_launch(*args), 2),
+        "all_pairs_bound_ms": _bound(_lists_bytes(ref, ref),
+                                     _walk_ops(ref_len, ref_len, SKETCH))["bound_ms"],
+        "all_pairs": N_ALL ** 2,
+    }
     for name, wall in walls.items():
         print(f"config 4: {name}: {wall:.3f} s wall")
     print(f"config 4: K9 at dist's {N_ALL}x{N_QRY} pairs {k9['ms']:.4f} ms, plain version "
           f"{k9['plain_ms']:.4f} ms, bound {k9['bound_ms']:.4f} ms ({k9['bound_by']}); K9 at "
           f"{N_ALL}x{N_ALL} pairs {k9['all_pairs_ms']:.4f} ms "
           f"({N_ALL ** 2 / k9['all_pairs_ms'] * 1e3:.4g} pairs/s), bound "
-          f"{k9['all_pairs_bound_ms']:.4f} ms; K2 at the same pairs {walk_ms:.4f} ms; "
-          f"launches {launches}")
-    return launches, k9, walls
+          f"{k9['all_pairs_bound_ms']:.4f} ms; K2 at the same pairs {k2['all_pairs_ms']:.4f} ms "
+          f"({k2['all_pairs_launch_ms']:.4f} ms through the C entry point), bound "
+          f"{k2['all_pairs_bound_ms']:.4f} ms; launches {launches}")
+    return launches, k9, k2, walls
 
 
 # ---------------------------------------------------------------------- #
@@ -1993,7 +2062,7 @@ def main() -> int:
     work = ROOT / "build" / "chip_smoke"
     work.mkdir(parents=True, exist_ok=True)
     err1 = phase_k1(dev, rng)
-    err2 = phase_k2(dev, rng)
+    err2, k2_random = phase_k2(dev, rng)
     errs = phase_factor_kernels(dev, rng)
     phase_golden(work)
     family_launches, k14_golden = phase_families_golden(work)
@@ -2004,6 +2073,7 @@ def main() -> int:
     k3, k4, k14 = phase_icfl_main_shapes(dev, work, seqs_i)
     k1["max_abs_err"] = max(k1["max_abs_err"], err1)
     k2["max_abs_err"] = max(k2["max_abs_err"], err2)
+    k2["random_lists"] = k2_random
     k3["max_abs_err"] = max(k3["max_abs_err"], errs["icfl"])
     k4["max_abs_err"] = max(k4["max_abs_err"], errs["hash_words"])
     k14["max_abs_err"] = max(k14["max_abs_err"], errs["cfl"])
@@ -2020,7 +2090,8 @@ def main() -> int:
         t["max_abs_err"] = max(t["max_abs_err"], kmer_errs[key])
 
     err9 = phase_k9(dev, rng)
-    config4_launches, k9, _ = phase_config4(dev, rng, work)
+    config4_launches, k9, k2_all_pairs, _ = phase_config4(dev, rng, work)
+    k2.update(k2_all_pairs)
     k9["max_abs_err"] = max(k9["max_abs_err"], err9)
 
     src = "fpmash_tpu_torch/csrc/"

@@ -1,6 +1,6 @@
-"""Time kernels of checkouts of the port, in turns, on one card: K1, K3, K5-K15.
+"""Time kernels of checkouts of the port, in turns, on one card: K1-K15.
 
-    python3 kernel_ab.py TREE_A TREE_B [--rounds 2]
+    python3 kernel_ab.py TREE_A TREE_B [--rounds 2] [--only k2 k4 ...]
 
 Each tree is the root of a checkout (for example the parent commit unpacked
 with ``git archive`` into a directory that ``.gitignore`` lists, and ``.``).
@@ -18,9 +18,13 @@ at the main paths' shapes on inputs made from a fixed seed:
   beside it (``sort_library_ms``);
 * the 512 000 shift windows of 100 of 256 reads of 2 000 bases: K1, K3
   (``factor_words`` ICFL_COMB), K14 (CFL_COMB) and the single-strand ICFL
-  and CFL passes of the same kernel; and the same windows as ``[512 000,
-  100]`` rows, K13 (``fingerprint_hashes_fused(variant="inline")``) under
-  byte4 and dna16;
+  and CFL passes of the same kernel, K4 (``hash_words``) on K3's words; and
+  the same windows as ``[512 000, 100]`` rows, K13
+  (``fingerprint_hashes_fused(variant="inline")``) under byte4 and dna16;
+* the CFL ``dist -fp`` shape: K2 over the 256 x 256 sketches of 1 000 of
+  those reads and of 256 more, each read's first 1 000 window hashes (low
+  32 bits, in order), as ``sketch --direct-fp`` writes them and ``dist``
+  loads them;
 * ``chip_smoke.N_CHUNKS`` seeded chunks of ``chip_smoke.CHUNK_LEN`` = 300
   characters, laid end to end as the ``fingerprint`` verb's generalized mode
   ships them: K3 (ICFL_COMB) at the shape of its instance for rows of
@@ -29,17 +33,19 @@ at the main paths' shapes on inputs made from a fixed seed:
   as ``fingerprint --rev_comb true`` sends them), where the ten families' CLI
   runs launch K14: CFL_COMB and CFL_ICFL_COMB-30 (the latter also at the
   512 000 windows);
-* K1, K3, K13 and K14 also through their C entry points alone
+* K1-K4, K13 and K14 also through their C entry points alone
   (``*_launch_ms``: no wrapper checks, allocations or waits for the card,
   such as ``factor_words``' ``lengths.max()`` and K13's ``aminmax``), which
   times the kernel without the wrapper's host work;
 * BASELINE config 4's 10 100 sketches of s = 1000, made as
   ``chip_smoke._cluster_lists`` makes them: K9 at ``dist``'s 10 000 x 100
   and at one all-pairs tile (the first ``ops/compare._TILE_PAIRS // 10 000``
-  rows against all 10 000).
+  rows against all 10 000), and K2 at a tile of the first 1 000 rows
+  against all 10 000 (``k2_tile_ms``, 10^7 pairs).
 
 Runs go A B B A in each round, so both trees meet the card in the same
-states.  It prints one JSON line per run, then the card's name and power
+states.  ``--only`` times just the keys that start with one of its
+prefixes.  It prints one JSON line per run, then the card's name and power
 limit as ``nvidia-smi`` gives them.  It needs a CUDA card.
 """
 
@@ -72,8 +78,9 @@ def _time_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def worker(tree: Path) -> dict:
-    """The times of one tree's kernels (run in a process of its own)."""
+def worker(tree: Path, only: list[str]) -> dict:
+    """The times of one tree's kernels whose keys start with a prefix in
+    ``only`` (all when it is empty), run in a process of its own."""
     sys.path.insert(0, str(ROOT))
     from chip_smoke import (
         BASE_SET,
@@ -87,13 +94,23 @@ def worker(tree: Path) -> dict:
         _factor_launch,
         _fingerprint_launch,
         _fingerprint_rows_launch,
+        _hash_words_launch,
+        _walk_launch,
     )
 
     sys.path.insert(0, str(tree))
     import numpy as np
     import torch
 
-    from fpmash_tpu_torch.ops import _build, compare_cuda, fused_cuda, icfl_cuda, kmers, sort_cuda
+    from fpmash_tpu_torch.ops import (
+        _build,
+        compare_cuda,
+        fused_cuda,
+        icfl_cuda,
+        kmers,
+        sort_cuda,
+        walk_cuda,
+    )
     from fpmash_tpu_torch.ops import kmers_cuda as kc
     from fpmash_tpu_torch.ops.compare import _TILE_PAIRS
     from fpmash_tpu_torch.ops.kmers import chunk_threshold
@@ -114,13 +131,22 @@ def worker(tree: Path) -> dict:
                                   CHUNK, K_WIDE)
     codes = codes.to(torch.int32)
 
-    reads = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, size=(N_READS, READ_LEN))]
-    doubled = np.concatenate([reads, reads[:, : WINDOW - 1]], axis=1)
-    row = READ_LEN + WINDOW - 1
-    starts = (np.arange(N_READS)[:, None] * row + np.arange(READ_LEN)[None, :]).reshape(-1)
-    flat = torch.from_numpy(doubled.reshape(-1).copy()).to(dev)
-    starts = torch.from_numpy(starts.astype(np.int64)).to(dev)
-    lengths = torch.full((starts.numel(),), WINDOW, dtype=torch.int32, device=dev)
+    def shift_windows():
+        reads = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, size=(N_READS, READ_LEN))]
+        doubled = np.concatenate([reads, reads[:, : WINDOW - 1]], axis=1)
+        row = READ_LEN + WINDOW - 1
+        starts = (np.arange(N_READS)[:, None] * row + np.arange(READ_LEN)[None, :]).reshape(-1)
+        return (torch.from_numpy(doubled.reshape(-1).copy()).to(dev),
+                torch.from_numpy(starts.astype(np.int64)).to(dev),
+                torch.full((starts.size,), WINDOW, dtype=torch.int32, device=dev))
+
+    def fp_sketches(args):
+        """Each read's first SKETCH window hashes, low 32 bits, in order."""
+        h1 = fused_cuda.fingerprint_hashes(*args, 42)[0] & 0xFFFFFFFF
+        lists = h1.view(N_READS, READ_LEN)[:, :SKETCH].contiguous()
+        return lists, torch.full((N_READS,), SKETCH, dtype=torch.int32, device=dev)
+
+    flat, starts, lengths = shift_windows()
     windows = flat[starts[:, None] + torch.arange(WINDOW, device=dev)].contiguous()
     chunks = _chunk_stream(np.random.default_rng(CHUNK_LEN), dev)
     from fpmash_tpu_torch.models.fingerprint import extract_reads, window_stream
@@ -141,32 +167,34 @@ def worker(tree: Path) -> dict:
     ref, ref_len = pad_lists(lists[:N_ALL], dev)
     qry, qry_len = pad_lists(lists[N_ALL:], dev)
     rows = _TILE_PAIRS // N_ALL
+    fp_walk = (*fp_sketches((flat, starts, lengths)), *fp_sketches(shift_windows()), SKETCH)
+    tile_walk = (ref[:1000], ref_len[:1000], ref, ref_len, SKETCH)
+    words = icfl_cuda.factor_words(flat, starts, lengths, "ICFL_COMB")[0]
 
-    return {
-        "tree": str(tree),
-        "k9_dist_ms": _time_ms(lambda: compare_cuda.pairwise_common_denom(
+    timings = {
+        "k2_ms": lambda: _time_ms(lambda: walk_cuda.pairwise_walk(*fp_walk)),
+        "k2_launch_ms": lambda: _time_ms(_walk_launch(*fp_walk)),
+        "k2_tile_ms": lambda: _time_ms(lambda: walk_cuda.pairwise_walk(*tile_walk), reps=3),
+        "k4_ms": lambda: _time_ms(lambda: icfl_cuda.hash_words(words, lengths, 42)),
+        "k4_launch_ms": lambda: _time_ms(_hash_words_launch(words, lengths)),
+        "k9_dist_ms": lambda: _time_ms(lambda: compare_cuda.pairwise_common_denom(
             ref, ref_len, qry, qry_len, SKETCH)),
-        "k9_tile_ms": _time_ms(lambda: compare_cuda.pairwise_common_denom(
+        "k9_tile_ms": lambda: _time_ms(lambda: compare_cuda.pairwise_common_denom(
             ref[:rows], ref_len[:rows], ref, ref_len, SKETCH), reps=3),
-        "k9_tile_pairs": rows * N_ALL,
-        "k15_ms": _time_ms(lambda: sort_cuda.row_sort_planes(keys, payload)),
-        "sort_library_ms": _time_ms(library_sort),
-        "k5_ms": _time_ms(lambda: kc.kmer_hashes_topk8_planes(seq, t5, BASES, k=K_WIDE)),
-        "k6_ms": _time_ms(lambda: kc.kmer_hashes_masked_planes(seq, t6, BASES, k=K_WIDE)),
-        "k7_ms": _time_ms(lambda: kc.kmer_hashes_planes(seq, k=K_WIDE)),
-        "k8_ms": _time_ms(lambda: kc.kmer_hashes_planes(seq, k=K_NARROW)),
-        "k10_ms": _time_ms(lambda: kc.kmer_hashes_packed_topk_planes(codes, t5, BASES, k=K_WIDE)),
-        "k11_ms": _time_ms(lambda: kc.canonical_murmur(F, R, k=K_WIDE)),
-        "k12_ms": _time_ms(lambda: kc.kmer_hashes_fused_planes(codes, k=K_WIDE)),
-        "k1_ms": _time_ms(lambda: fused_cuda.fingerprint_hashes(flat, starts, lengths, 42)),
-        "k1_launch_ms": _time_ms(_fingerprint_launch((flat, starts, lengths))),
-        # K13 on the same windows as rows, through the wrapper and the C entry point
-        **{f"k13_{pack}_ms": _time_ms(lambda p=pack: fused_cuda.fingerprint_hashes_fused(
-            windows, lengths, 42, p, "inline")) for pack in ("byte4", "dna16")},
-        **{f"k13_{pack}_launch_ms": _time_ms(_fingerprint_rows_launch(windows, lengths, pack))
-           for pack in ("byte4", "dna16")},
+        "k15_ms": lambda: _time_ms(lambda: sort_cuda.row_sort_planes(keys, payload)),
+        "sort_library_ms": lambda: _time_ms(library_sort),
+        "k5_ms": lambda: _time_ms(lambda: kc.kmer_hashes_topk8_planes(seq, t5, BASES, k=K_WIDE)),
+        "k6_ms": lambda: _time_ms(lambda: kc.kmer_hashes_masked_planes(seq, t6, BASES, k=K_WIDE)),
+        "k7_ms": lambda: _time_ms(lambda: kc.kmer_hashes_planes(seq, k=K_WIDE)),
+        "k8_ms": lambda: _time_ms(lambda: kc.kmer_hashes_planes(seq, k=K_NARROW)),
+        "k10_ms": lambda: _time_ms(lambda: kc.kmer_hashes_packed_topk_planes(codes, t5, BASES,
+                                                                             k=K_WIDE)),
+        "k11_ms": lambda: _time_ms(lambda: kc.canonical_murmur(F, R, k=K_WIDE)),
+        "k12_ms": lambda: _time_ms(lambda: kc.kmer_hashes_fused_planes(codes, k=K_WIDE)),
+        "k1_ms": lambda: _time_ms(lambda: fused_cuda.fingerprint_hashes(flat, starts, lengths, 42)),
+        "k1_launch_ms": lambda: _time_ms(_fingerprint_launch((flat, starts, lengths))),
         # K3 and K14: both strands, one strand, and the generalized mode's chunks
-        **{key: _time_ms(lambda f=family, a=fargs: icfl_cuda.factor_words(*a, f))
+        **{key: lambda f=family, a=fargs: _time_ms(lambda: icfl_cuda.factor_words(*a, f))
            for key, family, fargs in (
                ("k3_ms", "ICFL_COMB", (flat, starts, lengths)),
                ("k14_ms", "CFL_COMB", (flat, starts, lengths)),
@@ -174,26 +202,53 @@ def worker(tree: Path) -> dict:
                ("cfl_ms", "CFL", (flat, starts, lengths)),
                ("k3_chunks_ms", "ICFL_COMB", chunks))},
         # the same launches through the C entry point alone (no wrapper work)
-        "k3_launch_ms": _time_ms(_factor_launch((flat, starts, lengths), "ICFL_COMB")),
-        "k14_launch_ms": _time_ms(_factor_launch((flat, starts, lengths), "CFL_COMB")),
-        "k3_chunks_launch_ms": _time_ms(_factor_launch(chunks, "ICFL_COMB")),
-        # the CFL_ICFL base at the main shape, and K14 at the families' golden
-        "cfl_icfl_comb30_launch_ms": _time_ms(_factor_launch((flat, starts, lengths),
-                                                             "CFL_ICFL_COMB-30")),
-        "golden_cfl_comb_launch_ms": _time_ms(_factor_launch(golden, "CFL_COMB")),
-        "golden_cfl_icfl_comb30_launch_ms": _time_ms(_factor_launch(golden, "CFL_ICFL_COMB-30")),
-        "chunks": f"{N_CHUNKS} x {CHUNK_LEN}",
+        **{key: lambda f=family, a=fargs: _time_ms(_factor_launch(a, f))
+           for key, family, fargs in (
+               ("k3_launch_ms", "ICFL_COMB", (flat, starts, lengths)),
+               ("k14_launch_ms", "CFL_COMB", (flat, starts, lengths)),
+               ("k3_chunks_launch_ms", "ICFL_COMB", chunks),
+               # the CFL_ICFL base at the main shape, and K14 at the families' golden
+               ("cfl_icfl_comb30_launch_ms", "CFL_ICFL_COMB-30", (flat, starts, lengths)),
+               ("golden_cfl_comb_launch_ms", "CFL_COMB", golden),
+               ("golden_cfl_icfl_comb30_launch_ms", "CFL_ICFL_COMB-30", golden))},
+        # K13 on the same windows as rows, through the wrapper and the C entry point
+        **{f"k13_{pack}_ms": lambda p=pack: _time_ms(lambda: fused_cuda.fingerprint_hashes_fused(
+            windows, lengths, 42, p, "inline")) for pack in ("byte4", "dna16")},
+        **{f"k13_{pack}_launch_ms": lambda p=pack: _time_ms(_fingerprint_rows_launch(
+            windows, lengths, p)) for pack in ("byte4", "dna16")},
     }
+    def same(fn, plain, args):
+        got, want = fn(*args), plain(*args)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"{tree}: {fn.__name__} differs from its plain version")
+
+    # a variant tree's K2 and K4 must equal their plain versions before they are timed
+    checks = {
+        "k2": lambda: [same(walk_cuda.pairwise_walk, walk_cuda.pairwise_walk_plain, a)
+                       for a in (fp_walk, (ref[:100], ref_len[:100], *tile_walk[2:]))],
+        "k4": lambda: same(icfl_cuda.hash_words, icfl_cuda.hash_words_plain,
+                           (words, lengths, 42)),
+    }
+    selected = [key for key in timings if not only or any(key.startswith(p) for p in only)]
+    for prefix, check in checks.items():
+        if any(key.startswith(prefix + "_") for key in selected):
+            check()
+    out = {key: timings[key]() for key in selected}
+    return {"tree": str(tree), **out, "k9_tile_pairs": rows * N_ALL,
+            "k2_tile_pairs": tile_walk[0].shape[0] * N_ALL,
+            "chunks": f"{N_CHUNKS} x {CHUNK_LEN}"}
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("trees", nargs="*", type=Path)
     parser.add_argument("--rounds", type=int, default=2)
+    parser.add_argument("--only", nargs="*", default=[],
+                        help="time only the keys that start with one of these prefixes")
     parser.add_argument("--worker", type=Path, help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.worker is not None:
-        print(json.dumps(worker(args.worker)))
+        print(json.dumps(worker(args.worker, args.only)))
         return 0
     import torch
 
@@ -207,7 +262,8 @@ def main() -> int:
     for _ in range(args.rounds):
         order += args.trees + args.trees[::-1]
     for tree in order:
-        out = subprocess.run([sys.executable, __file__, "--worker", str(tree)],
+        out = subprocess.run([sys.executable, __file__, "--worker", str(tree),
+                              "--only", *args.only],
                              capture_output=True, text=True)
         if out.returncode != 0:
             print(out.stderr[-4000:], file=sys.stderr)

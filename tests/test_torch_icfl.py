@@ -269,3 +269,29 @@ def test_hash_kernel_matches_plain_on_random_words(cuda_device):
     args = [words.to(cuda_device), torch.from_numpy(lengths).to(cuda_device)]
     for g, w in zip(icfl_cuda.hash_words(*args, 9), icfl_cuda.hash_words_plain(*args, 9)):
         assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W", [1, 3, 4, 5, 8, 32])
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset4"])
+def test_hash_kernel_matches_plain_at_every_width(cuda_device, W, offset):
+    """Rows of 1 to 32 words (windows up to MAX_ICFL_WIDTH), every n from 0
+    to 32 W and invalid ones, bits at and past n, odd and even factor
+    counts; rows 16-byte aligned and a view 4 bytes in (the 4-byte loads)."""
+    from test_torch_hash_words_body import _rows
+
+    words, lengths = _rows(W + 100, 32 * W + 300, W)
+    flat = torch.from_numpy(words.view(np.int32).reshape(-1))
+    buf = torch.zeros(offset + flat.numel(), dtype=torch.int32, device=cuda_device)
+    buf[offset:] = flat.to(cuda_device)
+    args = [buf[offset:].view(words.shape), torch.from_numpy(lengths).to(cuda_device)]
+    assert args[0].data_ptr() % 16 == 4 * offset
+    before = icfl_cuda.LAUNCHES["hash_words"]
+    got = icfl_cuda.hash_words(*args, 9)
+    assert icfl_cuda.LAUNCHES["hash_words"] == before + 1
+    want = icfl_cuda.hash_words_plain(*args, 9)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    count = want[2][want[2] >= 0]
+    assert bool((count % 2 == 0).any()) and bool((count % 2 == 1).any())
