@@ -2031,6 +2031,363 @@ def phase_kmer_variants(dev, work: Path):
     return out["k10"], out["k11"], out["k12"], out["k15"]
 
 
+# ---------------------------------------------------------------------- #
+# windowed sketches and find
+# ---------------------------------------------------------------------- #
+
+#: the windowed phase's reference: a bacterial chromosome and a plasmid
+#: with planted Ns and lower case; queries: reads cut from the chromosome
+#: (1 % substitutions, every second one reverse-complemented) and random ones
+CHROMOSOME_LEN, PLASMID_LEN = 5_000_000, 200_000
+FIND_READS, FIND_RANDOM, FIND_READ_LEN = 100, 20, 5_000
+#: find's defaults: k, -L and mins = L / f (-f 100)
+FIND_K, FIND_WINDOW, FIND_MINS = 21, 10_000, 100
+
+
+def _fasta_record(name: str, text) -> bytes:
+    """One FASTA record of ``uint8`` bytes ``text`` in lines of 80."""
+    return (f">{name}\n".encode()
+            + b"".join(text[i : i + 80].tobytes() + b"\n" for i in range(0, len(text), 80)))
+
+
+def _minmer_bound(c: int, ws: int) -> dict:
+    """The minmer op's bound on one chunk of ``c`` window starts: the hash
+    and previous-occurrence windows ``[c, ws]`` (8 bytes each) read once, and
+    a comparison sort's ``ws log2 ws`` compares a row, each two 32-bit
+    operations (64-bit keys)."""
+    import math
+
+    return _bound(2 * 8 * c * ws, 2 * c * ws * math.ceil(math.log2(ws)))
+
+
+def phase_windowed_find(dev, rng, work: Path):
+    """``sketch -W`` and ``find`` through the CLI on cuda at find's defaults
+    (k = 21, -L 10 000, mins 100): a 5 000 000-base chromosome and a
+    200 000-base plasmid sketched to ``ref.msw``; ``find ref.msw`` and
+    ``find ref.fa`` (sketched again on the fly) of 100 planted reads of
+    5 000 bases and 20 random ones; ``sketch -W -k 16`` of the plasmid (K8,
+    32-bit hashes).  Counts set to 0 before, read after: the position hashes
+    must have launched K7 and K8.  Checks: both ``find`` runs print the same
+    lines; every planted read is reported on the chromosome within its
+    planted interval on its strand, and no random read is; the plasmid's
+    position hashes on the card equal the scalar MurmurHash3 of its raw
+    bytes and its loci the scalar minmer model over them (at k = 16 the
+    plain ``murmur3_bytes_batch``'s 32-bit hashes); and on one full chunk of
+    16 Mi window elements the minmer op on the card equals its CPU run.
+    Returns the launches and the op's record, with the time of its row sort
+    alone (``sort_ms``)."""
+    import io
+
+    import numpy as np
+    import torch
+
+    from fpmash_tpu_torch.cli import main
+    from fpmash_tpu_torch.models.sketch import Sketch, SketchParams, _position_hashes
+    from fpmash_tpu_torch.ops.murmur3 import murmur3_bytes_batch
+    from fpmash_tpu_torch.ops.winnow import (
+        CHUNK_ELEMS,
+        chunk_marks,
+        minmer_positions,
+        prev_occurrence,
+    )
+    from fpmash_tpu_torch.scalar.murmur3 import hash_bytes
+    from fpmash_tpu_torch.scalar.winnow import minmer_position_hashes
+    from fpmash_tpu_torch.utils import trace as trace_mod
+
+    out = work / "windowed"
+    out.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    lut = np.frombuffer(b"ACGT", np.uint8)
+    chrom = rng.integers(0, 4, size=CHROMOSOME_LEN, dtype=np.uint8)
+    plasmid = lut[rng.integers(0, 4, size=PLASMID_LEN)]
+    plasmid[rng.integers(0, PLASMID_LEN, size=200)] = ord("N")
+    plasmid[50_000:50_100] = ord("N")
+    plasmid[rng.integers(0, PLASMID_LEN, size=200)] |= 32
+    plasmid[120_000:125_000] |= 32  # a lower-case run
+    ref, pla, qry = out / "ref.fa", out / "plasmid.fa", out / "q.fa"
+    ref.write_bytes(_fasta_record("chr synthetic chromosome", lut[chrom])
+                    + _fasta_record("plasmid synthetic plasmid", plasmid))
+    pla.write_bytes(_fasta_record("plasmid synthetic plasmid", plasmid))
+    starts = rng.integers(0, CHROMOSOME_LEN - FIND_READ_LEN + 1, size=FIND_READS)
+    reads = chrom[starts[:, None] + np.arange(FIND_READ_LEN)]
+    err = rng.random(reads.shape) < 0.01
+    reads[err] = (reads[err] + rng.integers(1, 4, size=int(err.sum()), dtype=np.uint8)) % 4
+    minus = np.arange(FIND_READS) % 2 == 1
+    reads[minus] = 3 - reads[minus, ::-1]
+    rnd = rng.integers(0, 4, size=(FIND_RANDOM, FIND_READ_LEN), dtype=np.uint8)
+    qry.write_bytes(b"".join(_fasta_record(f"p{i}", lut[r]) for i, r in enumerate(reads))
+                    + b"".join(_fasta_record(f"rnd{i}", lut[r]) for i, r in enumerate(rnd)))
+    print(f"windowed: {CHROMOSOME_LEN}-base chromosome, {PLASMID_LEN}-base plasmid, "
+          f"{FIND_READS} planted and {FIND_RANDOM} random reads of {FIND_READ_LEN} bases "
+          f"written in {time.perf_counter() - t0:.1f} s")
+
+    commands = {
+        "sketch -W -s 100 ref.fa": ["sketch", "-W", "-s", str(FIND_MINS), str(ref),
+                                    "-o", str(out / "ref")],
+        "find ref.msw q.fa": ["find", str(out / "ref.msw"), str(qry)],
+        "find ref.fa q.fa": ["find", str(ref), str(qry)],
+        "sketch -W -k 16 -L 1000 -s 10 plasmid.fa": ["sketch", "-W", "-k", "16", "-L", "1000",
+                                                     "-s", "10", str(pla),
+                                                     "-o", str(out / "plasmid_k16")],
+    }
+    walls, spans, printed = {}, {}, {}
+    trace_mod._ENABLED = True  # the stage spans go to stderr, captured below
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_counts()
+    for name, argv in commands.items():
+        err_io, std = io.StringIO(), io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(err_io), contextlib.redirect_stdout(std):
+            rc = main([*argv, "--device", "cuda"])
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        assert rc == 0, (name, rc, err_io.getvalue())
+        spans[name] = [line[len("[fpmash] "):] for line in err_io.getvalue().splitlines()
+                       if line.startswith("[fpmash] ") and "find-query" not in line]
+        printed[name] = std.getvalue()
+    launches = _launches()
+    trace_mod._ENABLED = False
+    peak = torch.cuda.max_memory_allocated(dev)
+    if launches["kmer:planes_k32"] < 1 or launches["kmer:planes_k16"] < 1:
+        raise AssertionError(f"the windowed path did not launch K7 and K8: {launches}")
+
+    t0 = time.perf_counter()
+    found = printed["find ref.msw q.fa"]
+    if found != printed["find ref.fa q.fa"]:
+        raise AssertionError("find ref.msw and find ref.fa printed different lines")
+    hits: dict[str, list] = {}
+    for line in found.splitlines():
+        q, r, a, b, strand, score = line.split("\t")
+        hits.setdefault(q, []).append((r, int(a), int(b), strand, float(score)))
+    if any(q.startswith("rnd") for q in hits):
+        raise AssertionError(f"find reported a random read: {sorted(hits)}")
+    for i, (s0, m) in enumerate(zip(starts.tolist(), minus.tolist())):
+        want = "-" if m else "+"
+        got = hits.get(f"p{i}", [])
+        ok = [h for h in got if h[0] == "chr" and h[3] == want
+              and s0 <= h[1] <= h[2] <= s0 + FIND_READ_LEN - FIND_K]
+        if not ok or len(ok) != len(got):
+            raise AssertionError(f"planted read p{i} at {s0} ({want}): find reported {got}")
+    scores = [h[4] for q in hits for h in hits[q]]
+
+    p = SketchParams(kmer_size=FIND_K, sketch_size=FIND_MINS, window_size=FIND_WINDOW,
+                     windowed=True)
+    raw = plasmid.tobytes()
+    scalar = [hash_bytes(raw[i : i + FIND_K]) for i in range(PLASMID_LEN - FIND_K + 1)]
+    if _position_hashes(raw, p, dev).cpu().numpy().view(np.uint64).tolist() != scalar:
+        raise AssertionError("the plasmid's position hashes differ from the scalar murmur")
+    sk = Sketch()
+    sk.load_msh(str(out / "ref.msw"))
+    idx = sk.reference_index("plasmid")
+    loci = [(pos, h) for s, pos, h in sk.loci if s == idx]
+    if loci != minmer_position_hashes(scalar, FIND_WINDOW, FIND_MINS):
+        raise AssertionError("the plasmid's loci differ from the scalar minmer model")
+    sk16 = Sketch()
+    sk16.load_msh(str(out / "plasmid_k16.msw"))
+    win = torch.from_numpy(plasmid).unfold(0, 16, 1)
+    h16, _ = murmur3_bytes_batch(win.contiguous(), torch.full((win.shape[0],), 16), 42)
+    h16 = (h16 & 0xFFFFFFFF).tolist()
+    if [(pos, h) for _, pos, h in sk16.loci] != minmer_position_hashes(h16, 1000, 10):
+        raise AssertionError("sketch -W -k 16: the plasmid's loci differ from the scalar model")
+    checks = time.perf_counter() - t0
+
+    ws = FIND_WINDOW
+    c = CHUNK_ELEMS["cuda"] // ws
+    n = c + ws - 1
+    h = _position_hashes(lut[chrom[: n + FIND_K - 1]].tobytes(), p, dev)
+    t0 = time.perf_counter()
+    on_cpu = minmer_positions(h, ws, FIND_MINS, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    on_card = minmer_positions(h, ws, FIND_MINS, device=dev)
+    if not all(np.array_equal(a, b) for a, b in zip(on_card, on_cpu)):
+        raise AssertionError("minmer_positions on the card differs from its CPU run")
+    keys, prev = h ^ (-(1 << 63)), prev_occurrence(h)
+    ms = _time_ms(lambda: chunk_marks(keys, prev, 0, c, ws, FIND_MINS), 5)
+    sort_ms = _time_ms(lambda: torch.sort(keys.unfold(0, ws, 1)[:c], dim=1), 5)
+    record = {"name": "minmer_positions", "route": "torch",
+              "source": "fpmash_tpu_torch/ops/winnow.py",
+              "replaces": "fpmash_tpu/ops/winnow.py:105", "chunk": [c, ws], "mins": FIND_MINS,
+              "ms": ms, "sort_ms": sort_ms, "cpu_s": cpu_s, "minmers": int(len(on_card[0])),
+              **_minmer_bound(c, ws)}
+
+    for name in commands:
+        print(f"windowed: {name}: {walls[name]:.3f} s wall; spans: " + "; ".join(spans[name]))
+    print(f"windowed: {len(found.splitlines())} find lines, identical for ref.msw and ref.fa; "
+          f"every planted read at its interval and strand (scores {min(scores):g}-"
+          f"{max(scores):g}), no random read; {len(sk.loci)} loci, the plasmid's "
+          f"{len(loci)} equal to the scalar model ({checks:.1f} s of checks)")
+    print(f"windowed: launches K7 {launches['kmer:planes_k32']}, K8 "
+          f"{launches['kmer:planes_k16']}; peak device memory {peak / 2**30:.3f} GiB")
+    print("windowed: minmer op on one chunk " + json.dumps(record))
+    return launches, record
+
+
+# ---------------------------------------------------------------------- #
+# host verbs
+# ---------------------------------------------------------------------- #
+
+#: the host-verb phase's taxonomy: root, a genus, a species and one strain
+#: for each golden genome sketch (``mash_ref/genome{1,2,3}.fna.msh``)
+TAX_NODES = ("1\t|\t1\t|\tno rank\t|\n561\t|\t1\t|\tgenus\t|\n"
+             "562\t|\t561\t|\tspecies\t|\n11\t|\t562\t|\tstrain\t|\n"
+             "12\t|\t562\t|\tstrain\t|\n13\t|\t562\t|\tstrain\t|\n")
+TAX_NAMES = ("1\t|\troot\t|\t\t|\tscientific name\t|\n"
+             "561\t|\tEscherichia\t|\t\t|\tscientific name\t|\n"
+             "562\t|\tEscherichia coli\t|\t\t|\tscientific name\t|\n"
+             "11\t|\tE. coli K-12\t|\t\t|\tscientific name\t|\n"
+             "12\t|\tE. coli O157:H7\t|\t\t|\tscientific name\t|\n"
+             "13\t|\tE. coli BW25113\t|\t\t|\tscientific name\t|\n")
+
+#: sha256 of each output of :func:`_host_verb_runs` through ``python -m
+#: fpmash_tpu`` on the CPU (held against that CLI by
+#: tests/test_torch_host_verbs.py)
+HOST_VERB_SHA256 = {
+    "paste:genomes3.msh": "d342e3a42b3ac752037fae8344cbbcce62331ca3e4579210550e452703702aa7",
+    "paste -fp -o:fp.msh": "47816e9125909d24d6a365a5f6deab926307c7f7e5d3fe708ad91d15de87c6fc",
+    "info -d DNA1": "54df580d2103513c1989fa8a60417d33c6cbfde134ea936fb25f1ca527d4f39b",
+    "info -d DNA2": "a7449f3069042f191f6e5afbdab3f2d49a9e1a6b837b46865dcf61b79543724b",
+    "info -d DNA3": "044a1444527136193b7f7e68ea492b64d67282a6573717ddb0605b847b7d4c22",
+    "info -d reads": "37278666968a1616585357cd9f0bf52813de608f1c7335bb4e9da604dcc76dea",
+    "info -H reads": "53921e47459a666538afb1db46b46577dcba84c865814edcc5ada14812b16b1a",
+    "info -t reads": "a9173365956faa5cac324ef4c2c9c188a7b60edec303cd6c68c66df8514b0742",
+    "info -c reads": "55e91e8ed16edd55269c5f86a7b3dcf9c060d9bf63f723d33927436c7cf38fcd",
+    "bounds": "bebafa9ca6032158a2af6f76dacc2397ae46cb320e0a5b2795b325dfdc100060",
+    "bounds -k 16 -p 0.95": "bbf21154ca868345d6e6917a5d13ebe8700e1c9a72d2efb96ad3f74db8315e7f",
+    "contain": "dbf27b8247389e13bce9db7a9ac32a917c12e1f9ee2c378ffec1778f70aca6f2",
+    "contain -C fastq": "57799c4857d6c4c6ac0651eb36132d628b5b27824c8a6f19b6ba055f9c065848",
+    "taxscreen": "b6a6822a68f973d1956082494800f2ea45a5d500e6f3301d1ef276115ba772d9",
+    "generate:gen.fasta": "b54db3f81115b37ecdab104fda26032fdb592bcd2e5b14c948b7663cf50cfd7e",
+    "generate fastq:genq.fastq": "764ba02196b40c3bbbcd6f2d68e236af34687d5fe8614910bb87571970582379",
+    "mapping:mapped_dna3.txt.txt": "614f9772bb650e6a6ce65d001a2f9c7abf4db2006c2451bb470f75cfbdaac7e9",
+}
+
+
+def _host_verb_runs(main, work: Path, device: list) -> dict:
+    """Output bytes of ``paste``, ``info``, ``bounds``, ``contain``,
+    ``taxscreen``, ``generate`` and ``mapping`` on golden inputs, through
+    the CLI entry point ``main``: each verb's standard output, and the files
+    it writes (keyed ``verb:file``).  ``work`` is emptied first; ``device``
+    is appended to the verbs that take one (``contain``, ``taxscreen``)."""
+    import io
+    import shutil
+
+    g = ROOT / "tests" / "golden"
+    shutil.rmtree(work, ignore_errors=True)
+    (work / "tax").mkdir(parents=True)
+    out = {}
+
+    def run(name, argv, files=()):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(io.StringIO()):
+            rc = main(argv)
+        if rc != 0:
+            raise AssertionError(f"{name}: exit code {rc}")
+        if buf.getvalue() or not files:  # a verb that writes files prints nothing
+            out[name] = buf.getvalue().encode()
+        for f in files:
+            out[f"{name}:{f}"] = (work / f).read_bytes()
+
+    g3 = str(work / "genomes3.msh")
+    run("paste", ["paste", g3, *(str(g / "mash_ref" / f"genome{i}.fna.msh") for i in (1, 2, 3))],
+        ["genomes3.msh"])
+    # -fp pastes a .txt operand's sibling .msh; -o takes the output last
+    shutil.copy(g / "cfl" / "DNA3-CFL.txt", work / "dna3.txt")
+    shutil.copy(g / "cfl" / "DNA3-sketch.msh", work / "dna3.msh")
+    run("paste -fp -o", ["paste", "-fp", "-o", str(work / "dna3.txt"), str(work / "fp")],
+        ["fp.msh"])
+    for i in (1, 2, 3):
+        run(f"info -d DNA{i}", ["info", "-d", str(g / "cfl" / f"DNA{i}-sketch.msh")])
+    reads = str(g / "new_data" / "reads.msh")
+    for flag in ("-d", "-H", "-t", "-c"):
+        run(f"info {flag} reads", ["info", flag, reads])
+    run("bounds", ["bounds"])
+    run("bounds -k 16 -p 0.95", ["bounds", "-k", "16", "-p", "0.95"])
+    run("contain", ["contain", "-e", "1", g3, reads, g3, *device])
+    # a sequence file's reference is named by its path as given: relative here
+    fastqs = [f"reads{i}.fastq" for i in (1, 2)]
+    for f in fastqs:
+        shutil.copy(g / "new_data" / f, work / f)
+    with contextlib.chdir(work):
+        run("contain -C fastq", ["contain", "-e", "0.5", "-C", g3, *fastqs, *device])
+    fastqs = [str(work / f) for f in fastqs]
+    (work / "tax" / "nodes.dmp").write_text(TAX_NODES)
+    (work / "tax" / "names.dmp").write_text(TAX_NAMES)
+    (work / "map.txt").write_text("11\tdata/genome1.fna\n12\tdata/genome2.fna\n"
+                                  "13\tdata/genome3.fna\n")
+    run("taxscreen", ["taxscreen", g3, *fastqs, "-t", str(work / "tax"),
+                      "-m", str(work / "map.txt"), *device])
+    gen = ["generate", "--size", "300", "--number_dna_generate", "4"]
+    run("generate", [*gen, "--path", str(work / "gen"), "--gc_content", "0.4", "--seed", "7"],
+        ["gen.fasta"])
+    run("generate fastq", [*gen, "--path", str(work / "genq"), "--format", "fastq",
+                           "--seed", "8"], ["genq.fastq"])
+    run("mapping", ["mapping", "--path", str(work), "--fingerprint", "dna3.txt"],
+        ["mapped_dna3.txt.txt"])
+    return out
+
+
+def _check_info_json(text: str, golden: Path) -> int:
+    """``info -d``'s dump against a reference dump: the header, and each
+    sketch's name and hashes (and counts, where the golden has them; the
+    load truncates to the sketch size, as the reference's does).  Returns
+    the number of hashes compared."""
+    from fpmash_tpu_torch.utils.info_json import load_info_json
+
+    mine, gold = load_info_json(text), load_info_json(str(golden))
+    for key in ("kmer", "alphabet", "canonical", "sketchSize", "hashBits", "hashSeed"):
+        if mine[key] != gold[key]:
+            raise AssertionError(f"info -d {golden.name}: {key} {mine[key]} != {gold[key]}")
+    if len(mine["sketches"]) != len(gold["sketches"]):
+        raise AssertionError(f"info -d {golden.name}: sketch count differs")
+    n = 0
+    for m, s in zip(mine["sketches"], gold["sketches"]):
+        if m["name"] != s["name"] or m["hashes"][: len(s["hashes"])] != s["hashes"]:
+            raise AssertionError(f"info -d {golden.name}: sketch {s['name']} differs")
+        if "counts" in s and m["counts"][: len(s["counts"])] != s["counts"]:
+            raise AssertionError(f"info -d {golden.name}: counts of {s['name']} differ")
+        n += len(s["hashes"])
+    return n
+
+
+def phase_host_verbs(work: Path):
+    """``paste``, ``info``, ``bounds``, ``contain``, ``taxscreen``,
+    ``generate`` and ``mapping`` through the port's CLI on golden inputs:
+    ``contain`` and ``taxscreen`` (which sketch and hash FASTQs on the card,
+    K7) on cuda, then every verb again with ``--device cpu``.  Every output
+    must equal the CPU run's and the JAX package's (its digests,
+    :data:`HOST_VERB_SHA256`), and ``info -d`` the reference's JSON dumps of
+    the DNA goldens and of the reads golden."""
+    import hashlib
+
+    from fpmash_tpu_torch.cli import main
+
+    t0 = time.perf_counter()
+    _reset_counts()
+    on_card = _host_verb_runs(main, work / "host_verbs_cuda", ["--device", "cuda"])
+    launches = _launches()
+    wall = time.perf_counter() - t0
+    if launches["kmer:planes_k32"] < 1:
+        raise AssertionError(f"contain and taxscreen did not launch K7: {launches}")
+    on_cpu = _host_verb_runs(main, work / "host_verbs_cpu", ["--device", "cpu"])
+    differ = sorted(k for k in on_card if on_card[k] != on_cpu.get(k))
+    if differ or on_card.keys() != on_cpu.keys():
+        raise AssertionError(f"host verbs: cuda and cpu runs differ in {differ}")
+    digests = {k: hashlib.sha256(v).hexdigest() for k, v in on_card.items()}
+    differ = sorted(k for k in digests.keys() | HOST_VERB_SHA256.keys()
+                    if digests.get(k) != HOST_VERB_SHA256.get(k))
+    if differ:
+        raise AssertionError(f"host verbs: outputs differ from the JAX package's in {differ}")
+    g = ROOT / "tests" / "golden"
+    n = sum(_check_info_json(on_card[f"info -d DNA{i}"].decode(), g / "cfl" / f"DNA{i}-sketch.json")
+            for i in (1, 2, 3))
+    n += _check_info_json(on_card["info -d reads"].decode(), g / "new_data" / "reads.json")
+    print(f"host verbs: {len(on_card)} outputs of paste, info, bounds, contain, taxscreen, "
+          f"generate and mapping equal on cuda and cpu and to the JAX package's; info -d "
+          f"equals the four JSON goldens ({n} hashes); cuda run {wall:.2f} s wall, "
+          f"launches {launches}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2094,6 +2451,11 @@ def main() -> int:
     k2.update(k2_all_pairs)
     k9["max_abs_err"] = max(k9["max_abs_err"], err9)
 
+    windowed_launches, minmer = phase_windowed_find(dev, rng, work)
+    k7["windowed_launches"] = windowed_launches["kmer:planes_k32"]
+    k8["windowed_launches"] = windowed_launches["kmer:planes_k16"]
+    phase_host_verbs(work)
+
     src = "fpmash_tpu_torch/csrc/"
     kernels = [
         {"name": "fingerprint", "route": "cuda", "source": src + "fingerprint.cu",
@@ -2146,6 +2508,8 @@ def main() -> int:
                         "replaces": "fpmash_tpu/ops/" + replaces,
                         "entry_point": "fpmash_tpu_torch/" + entry,
                         "routed_in_reference": False, **rec})
+    # no Pallas kernel: an XLA jit in the JAX package, plain PyTorch here
+    print(json.dumps({"device_ops": [minmer]}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

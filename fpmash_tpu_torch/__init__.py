@@ -10,12 +10,15 @@ The package imports ``torch``, ``numpy`` and the standard library, never
 ``jax`` or :mod:`fpmash_tpu` (whose ``__init__`` imports JAX), so it runs
 where JAX is not installed.  Host modules it needs are carried as copies.
 
-Ported so far: the fingerprint path (``sketch --direct-fp`` under all ten
-lyn2vec factorization families, ``sketch -fp``, ``dist -fp``, the
-``fingerprint`` verb), the classic k-mer MinHash path (``sketch``,
-``dist``, ``triangle``, ``screen``), and all fifteen Pallas kernels, the
-five that the JAX package keeps off its routes behind the entry points of
-the JAX functions that reach them.
+Every verb of the JAX package's CLI is ported: the fingerprint path
+(``sketch --direct-fp`` under all ten lyn2vec factorization families,
+``sketch -fp``, ``dist -fp``, the ``fingerprint`` verb), the classic k-mer
+MinHash path (``sketch``, ``dist``, ``triangle``, ``screen``), windowed
+sketches (``sketch -W``) and ``find``, and the host verbs (``contain``,
+``paste``, ``info``, ``bounds``, ``taxscreen``, ``generate``,
+``mapping``); so are all fifteen Pallas kernels, the five that the JAX
+package keeps off its routes behind the entry points of the JAX functions
+that reach them.
 """
 
 __version__ = "0.1.0"

@@ -4,7 +4,7 @@ The sketch options are those of ``fpmash_tpu/commands/common.py``
 (``Command::useSketchOptions``, Command.cpp:183-228), with the same
 identifiers and defaults, and the parameter setup follows
 sketchParameterSetup.cpp:9-106, including the fingerprint, protein and
-alphabet overrides.  Windowed sketches (``-W``) are not ported yet.
+alphabet overrides, and the windowed ones of ``-W``.
 """
 
 from __future__ import annotations
@@ -36,8 +36,11 @@ def add_sketch_options(parser: argparse.ArgumentParser) -> None:
     g.add_argument("-z", "--alphabet", type=str, default=None, help="Alphabet to base hashes on (case ignored by default). Implies -n.")
     g.add_argument("-Z", "--preserve-case", action="store_true", help="Preserve case in k-mers and alphabets.")
     g.add_argument("-p", "--threads", type=int, default=1, help="Parallelism (kept for interface parity; device batching supersedes it).")
-    g.add_argument("-W", "--windowed", action="store_true", help="Windowed sketches (.msw): not ported yet.")
-    g.add_argument("-L", "--window", type=int, default=10000, help="Window length for -W. [10000]")
+    # windowed ("minmer") sketching: gated behind COMMAND_FIND in the
+    # reference's default build (sketchParameterSetup.cpp:20-24), always
+    # available here, as in the JAX package (Command.cpp:186-188)
+    g.add_argument("-W", "--windowed", action="store_true", help="Windowed: store hashes that are minima in any window of -L size, with their positions (.msw output).")
+    g.add_argument("-L", "--window", type=int, default=10000, help="Window length for -W. Hashes that are minima in any window of this size will be stored. [10000]")
 
 
 def add_device_option(parser: argparse.ArgumentParser) -> None:
@@ -64,10 +67,6 @@ def parse_size(text: str | None) -> int:
 
 def sketch_params_from_args(args, fingerprint: bool = False) -> SketchParams:
     """sketchParameterSetup.cpp:9-106 semantics."""
-    if args.windowed:
-        raise NotImplementedError(
-            "windowed sketches (-W) are not ported yet (ROADMAP Queue 1 item 15, slice 5)"
-        )
     p = SketchParams()
     if args.kmer is not None:
         p = replace(p, kmer_size=args.kmer)
@@ -93,6 +92,10 @@ def sketch_params_from_args(args, fingerprint: bool = False) -> SketchParams:
         print("ERROR: The option -i cannot be used with -r.", file=sys.stderr)
         raise SystemExit(1)
     p = replace(p, preserve_case=args.preserve_case)
+    if getattr(args, "windowed", False):
+        # COMMAND_FIND builds force per-sequence references
+        # (sketchParameterSetup.cpp:20-24: concatenated = false)
+        p = replace(p, windowed=True, window_size=args.window, concatenated=False)
 
     if fingerprint:
         return p.for_fingerprint()
@@ -123,3 +126,18 @@ def expand_inputs(arguments: list[str], list_mode: bool) -> list[str]:
         else:
             files.append(a)
     return files
+
+
+def print_columns(columns: list[list[str]], indent: int = 2, pad: int = 2, fh=None):
+    """Padded column output (Command.cpp printColumns)."""
+    fh = fh or sys.stdout
+    widths = [max((len(c) for c in col), default=0) for col in columns]
+    for row in range(max(len(c) for c in columns)):
+        line = " " * indent
+        for ci, col in enumerate(columns):
+            cell = col[row] if row < len(col) else ""
+            if ci < len(columns) - 1:
+                line += cell.ljust(widths[ci] + pad)
+            else:
+                line += cell
+        fh.write(line.rstrip() + "\n")

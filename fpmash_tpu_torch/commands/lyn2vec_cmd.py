@@ -1,11 +1,17 @@
-"""`fingerprint` — Lyndon-factorization fingerprints of reads (lyn2vec/lyn2vec.py:241-287).
+"""lyn2vec verbs: `generate`, `fingerprint`, `mapping` (lyn2vec/lyn2vec.py:241-287).
 
-The basic pipeline (``--type basic``: every cyclic 100-window, or the whole
-read with ``--shift no_shift``) and the generalized one (``--type
-generalized``: long reads cut into ``--split``-sized chunks).  Flags,
-defaults and output bytes are those of ``python -m fpmash_tpu
-fingerprint``; ``--device`` replaces ``--backend``.  The other lyn2vec
-verbs, ``generate`` and ``mapping``, are not ported yet.
+* ``generate`` — pseudo-random DNA FASTA/FASTQ files (dna_utils.py:71),
+  drawn from Python's ``random.Random(seed)`` as in the JAX package, so a
+  seeded run writes the same bytes.
+* ``fingerprint`` — the basic pipeline (``--type basic``: every cyclic
+  100-window, or the whole read with ``--shift no_shift``) and the
+  generalized one (``--type generalized``: long reads cut into
+  ``--split``-sized chunks), on ``--device`` (in place of ``--backend``).
+* ``mapping`` — fingerprint -> Unicode-alphabet projection
+  (fingerprint_utils.py:377-398).
+
+Flags, defaults and output bytes are those of ``python -m fpmash_tpu``'s
+verbs of the same names.
 """
 
 from __future__ import annotations
@@ -18,7 +24,16 @@ from fpmash_tpu_torch.device import resolve_device
 from fpmash_tpu_torch.ops.factorize import plan
 
 
-def add_parser(sub):
+def add_parsers(sub):
+    g = sub.add_parser("generate", help="Generate pseudo-random DNA sequence files.")
+    g.add_argument("--path", default="generated", help="Output file path/prefix (extension appended).")
+    g.add_argument("--format", default="fasta", choices=["fasta", "fa", "fastq"])
+    g.add_argument("--size", type=int, required=True, help="Size of each DNA sequence in bp.")
+    g.add_argument("--number_dna_generate", type=int, required=True, help="Number of sequences to generate.")
+    g.add_argument("--gc_content", type=float, default=0.5, help="GC content in [0, 1].")
+    g.add_argument("--seed", type=int, default=None, help="PRNG seed (the reference is unseeded).")
+    g.set_defaults(func=run_generate)
+
     f = sub.add_parser("fingerprint", help="Compute Lyndon-factorization fingerprints of reads.")
     f.add_argument("--type", dest="mode", default="basic", choices=["basic", "generalized"], help="basic = shift windows; generalized = long-read chunks.")
     f.add_argument("--path", default="", help="Directory containing the FASTA and receiving outputs.")
@@ -31,7 +46,36 @@ def add_parser(sub):
     f.add_argument("-n", type=int, default=1, help="Worker count (interface parity; device batching supersedes it).")
     add_device_option(f)
     f.set_defaults(func=run_fingerprint)
-    return f
+
+    m = sub.add_parser("mapping", help="Map fingerprints to a Unicode character projection.")
+    m.add_argument("--path", default="", help="Directory containing the fingerprint file.")
+    m.add_argument("--fingerprint", required=True, help="Fingerprint .txt file name.")
+    m.set_defaults(func=run_mapping)
+
+
+def run_generate(args) -> int:
+    import random
+
+    from fpmash_tpu_torch.utils.dna import (
+        generate_dna_sequences,
+        generate_gene_id,
+        generate_transcript_id,
+    )
+    from fpmash_tpu_torch.utils.fasta import write_fasta, write_fastq
+
+    rng = random.Random(args.seed)
+    seqs = generate_dna_sequences(args.number_dna_generate, args.size, args.gc_content, rng)
+    records = []
+    for seq in seqs:
+        tid = generate_transcript_id(rng)
+        records.append((f"{tid} {generate_gene_id(tid)}", seq))
+    out = f"{args.path}.{args.format}"
+    if args.format == "fastq":
+        write_fastq(out, records)
+    else:
+        write_fasta(out, records)
+    print(f"File {out} generato con successo.", file=sys.stderr)
+    return 0
 
 
 def run_fingerprint(args) -> int:
@@ -72,4 +116,17 @@ def run_fingerprint(args) -> int:
         with open(fac_path, "w") as fh:
             fh.writelines(fac)
     print(f"Wrote {fp_path}", file=sys.stderr)
+    return 0
+
+
+def run_mapping(args) -> int:
+    from fpmash_tpu_torch.utils.mapping import mapping_projection
+
+    src = os.path.join(args.path, args.fingerprint) if args.path else args.fingerprint
+    lines = mapping_projection(src)
+    base = args.path if args.path else "."
+    out = os.path.join(base, f"mapped_{args.fingerprint}.txt")
+    with open(out, "w") as fh:
+        fh.writelines(lines)
+    print(f"Wrote {out}", file=sys.stderr)
     return 0

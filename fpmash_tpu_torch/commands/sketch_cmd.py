@@ -1,7 +1,8 @@
 """`sketch` — create sketches (CommandSketch.cpp:20-123).
 
 Classic k-mer MinHash sketches of FASTA/FASTQ files (one per file, per
-record with ``-i``, or one of all reads with ``-r``), fingerprint sketches
+record with ``-i``, or one of all reads with ``-r``), windowed sketches with
+``-W`` (one per record, minmer loci, written as ``.msw``), fingerprint sketches
 with ``--direct-fp`` (FASTA -> shift windows -> factorization of any of the
 ten lyn2vec families -> hash) and ``-fp`` (fingerprint ``.txt`` -> hash).
 Flags, defaults and output bytes are those of ``python -m fpmash_tpu
@@ -86,7 +87,9 @@ def run(args) -> int:
     sketch._create_index()
 
     prefix = args.prefix or (args.inputs[0] if args.inputs[0] != "-" else "stdin")
-    out = prefix if prefix.endswith(".msh") else prefix + ".msh"
+    # windowed sketches use the .msw suffix (CommandSketch.cpp:112-115)
+    suffix = ".msw" if params.windowed else ".msh"
+    out = prefix if prefix.endswith(suffix) else prefix + suffix
     print(f"Writing to {out}...", file=sys.stderr)
     sketch.write_msh(out)
     return 0

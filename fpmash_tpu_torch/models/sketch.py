@@ -1,8 +1,8 @@
 """Sketch engine: the MinHash container and its construction paths.
 
-Port of :mod:`fpmash_tpu.models.sketch` (``mash/src/mash/Sketch.{h,cpp}``)
-without windowed sketches.  A sketch is a host-side list of
-references whose hash arrays are computed on the chosen device:
+Port of :mod:`fpmash_tpu.models.sketch` (``mash/src/mash/Sketch.{h,cpp}``).
+A sketch is a host-side list of references whose hash arrays (or, windowed,
+loci) are computed on the chosen device:
 
 * ``sketch -fp`` (:meth:`Sketch.init_from_fingerprints`, Sketch.cpp:56-151):
   every fingerprint line is one MurmurHash3 of its u64 length vector, kept
@@ -23,6 +23,11 @@ references whose hash arrays are computed on the chosen device:
   other alphabets, ``-b`` and ``-c`` go the pool path: every k-mer hash
   (K7/K8, ``ops/kmers.kmer_hashes``), then one bottom-k over the pool.
   ``--device cpu`` takes the same routes with the kernels' plain versions.
+* windowed sketches (``sketch -W``, ``.msw``; sketchSequence,
+  Sketch.cpp:1504-1507, and getMinHashPositions, :737-1047): one reference
+  per record with no hash list, and *loci* ``(reference, position, hash)``:
+  the k-mer hash at every position (:func:`_position_hashes`, K7/K8), then
+  the minmers of windows of ``-L`` positions (``ops/winnow.py``).
 
 Persistence is the byte-compatible ``.msh`` codec of ``utils/msh.py``.
 The sketch is the state this system carries between commands, as weights
@@ -51,6 +56,13 @@ _POOL_CHUNK = 1 << 22
 
 #: reads hashed between two coverage estimates of ``-c`` (Sketch.cpp:1410-1414)
 _TARGET_COV_READS = 256
+
+#: positions hashed per launch by :func:`_position_hashes`, by device type
+#: (tests shrink them to cross chunk edges)
+_POSITION_CHUNK = {"cuda": 1 << 24, "cpu": 1 << 16}
+
+#: windows hashed again over their raw bytes per batch (:func:`_position_hashes`)
+_REHASH_BATCH = 1 << 20
 
 
 @dataclass
@@ -113,6 +125,9 @@ class Sketch:
         self.params = params or SketchParams()
         self.references: list[Reference] = []
         self._index_by_id: dict[str, int] = {}
+        #: windowed loci: (reference index, position, hash64)
+        self.loci: list[tuple[int, int, int]] = []
+        self._loci_by_hash: dict[int, list[tuple[int, int]]] = {}
 
     # ------------------------------------------------------------------ #
     # fingerprint path
@@ -260,12 +275,13 @@ class Sketch:
         MinHash).  ``merge=True``: all records feed one reference
         (concatenated and reads mode); otherwise one reference per record
         (``-i``, sketchFileBySequence).  Records shorter than ``k`` are
-        skipped."""
+        skipped.  Windowed parameters give one reference per record and its
+        loci (``merge`` never applies: COMMAND_FIND builds force
+        concatenated=false, sketchParameterSetup.cpp:20-24)."""
         p = self.params
         if p.windowed:
-            raise NotImplementedError(
-                "windowed sketches (-W) are not ported yet (ROADMAP Queue 1 item 15, slice 5)"
-            )
+            self._init_windowed(records, name, comment, device)
+            return
         if not merge:
             for rname, rcomment, seq in records:
                 if len(seq) < p.kmer_size:
@@ -320,13 +336,34 @@ class Sketch:
         )
         self._create_index()
 
+    def _init_windowed(self, records, name: str, comment: str, device) -> None:
+        from fpmash_tpu_torch.ops.winnow import minmer_positions
+
+        p = self.params
+        for rname, rcomment, seq in records:
+            if len(seq) < p.kmer_size:
+                continue
+            ref_idx = len(self.references)
+            with trace("position-hashes", bases=len(seq)):
+                ph = _position_hashes(seq, p, device)
+            with trace("minmers", positions=ph.numel(), window=p.window_size):
+                positions, phashes = minmer_positions(ph, p.window_size, p.sketch_size,
+                                                      device=device)
+            self.references.append(
+                Reference(name=name or rname, comment=comment or rcomment, length=len(seq))
+            )
+            self.loci.extend((ref_idx, pos, h)
+                             for pos, h in zip(positions.tolist(), phashes.tolist()))
+        self._create_index()
+
     def init_from_files(self, files: list[str], individual: bool = False, *, device) -> None:
         """Sketch FASTA/FASTQ files, and load ``.msh`` ones (Sketch::initFromFiles).
 
         A sequence file gives one reference named after its path, with the
         first record's comment (sketchFile, Sketch.cpp:1299-1488), or with
-        ``individual`` one reference per record.  A ``.msh`` loads with the
-        load-time truncation rule.
+        ``individual`` (or windowed parameters) one reference per record.  A
+        ``.msh`` (windowed: ``.msw``, Sketch.cpp:257) loads with the load-time
+        truncation rule.
         """
         from fpmash_tpu_torch.utils.fasta import read_sequences
 
@@ -336,7 +373,7 @@ class Sketch:
                 continue
             with trace("read-sequences", file=path):
                 records = list(read_sequences(path))
-            if individual:
+            if individual or self.params.windowed:
                 self.init_from_sequences(records, device=device)
             else:
                 self.init_from_sequences(records, name=path, merge=True, device=device)
@@ -381,6 +418,8 @@ class Sketch:
             window_size=m.window_size,
             windowed=bool(m.loci) or m.window_size > 0,
         )
+        base = len(self.references)
+        self.loci.extend((base + int(s), int(pos), int(h)) for s, pos, h in m.loci)
         cap = self.params.sketch_size
         for r in m.references:
             hashes = r.hashes64 if self.params.use64 else r.hashes32
@@ -422,6 +461,7 @@ class Sketch:
             if with_counts:
                 mr.counts32 = np.asarray(r.counts, np.uint32)
             m.references.append(mr)
+        m.loci = list(self.loci)
         with trace("write-msh", references=len(m.references)):
             write_msh(path, m)
 
@@ -429,6 +469,13 @@ class Sketch:
 
     def _create_index(self) -> None:
         self._index_by_id = {r.name: i for i, r in enumerate(self.references)}
+        # hash -> [(reference index, position)] (createIndex, Sketch.cpp:644-662)
+        self._loci_by_hash = {}
+        for seq_idx, pos, h in self.loci:
+            self._loci_by_hash.setdefault(h, []).append((seq_idx, pos))
+
+    def loci_by_hash(self, h: int) -> list[tuple[int, int]]:
+        return self._loci_by_hash.get(int(h), [])
 
     def reference_index(self, name: str) -> int:
         """Index of reference ``name``, or -1 (Sketch.cpp:189-200)."""
@@ -755,6 +802,54 @@ def _kmer_distinct_counts(seqs: list[str], p: SketchParams, device):
     with trace("distinct-counts", pool=pool.numel()):
         values, counts = distinct_counts(pool)
         return values.cpu().numpy().view(np.uint64), counts.cpu().numpy()
+
+
+def _position_hashes(seq, p: SketchParams, device) -> torch.Tensor:
+    """Hash of the k-mer at every start position of ``seq``, in order, as an
+    ``int64`` tensor on ``device`` (low 32 bits unless ``use64``).
+
+    The scalar model's hashes (getMinHashPositions, Sketch.cpp:837): the raw
+    bytes as they are, with no case folding, no canonical strand and no
+    alphabet filter.  For the DNA alphabet and ``k <= 32`` the hash kernels
+    run non-canonical and case-preserving (K7 for ``16 < k``, K8 below;
+    ``ops/kmers_cuda.kmer_hashes_planes``) in launches of
+    ``_POSITION_CHUNK`` positions overlapping by ``k - 1``; every window
+    they mark invalid, one with a byte outside upper-case ``ACGT``, is hashed
+    again over its raw bytes (``ops/murmur3.murmur3_bytes_batch``), as are
+    all windows of other alphabets or ``k > 32``.  The JAX package's device
+    route keeps the packed hash there, which reads such a byte as ``T``; its
+    scalar route does not, and the port follows the scalar route.
+    """
+    from fpmash_tpu_torch.ops.kmers_cuda import join_planes, kmer_hashes_planes
+    from fpmash_tpu_torch.ops.murmur3 import murmur3_bytes_batch
+
+    k = p.kmer_size
+    b = seq.encode("ascii", "replace") if isinstance(seq, str) else bytes(seq)
+    n = len(b)
+    if n < k:
+        return torch.zeros(0, dtype=torch.int64, device=device)
+    stream = torch.from_numpy(np.frombuffer(b, np.uint8).copy()).to(device)
+    m = n - k + 1
+    out = torch.empty(m, dtype=torch.int64, device=device)
+    if set(p.alphabet) == set("ACGT") and k <= 32:
+        size = _POSITION_CHUNK[torch.device(device).type]
+        redo = []
+        for pos in range(0, m, size - (k - 1)):
+            end = min(pos + size, n)
+            keep = end - pos - k + 1
+            lo, hi, valid = kmer_hashes_planes(stream[pos:end], k=k, noncanonical=True,
+                                               preserve_case=True, seed=p.seed)
+            out[pos : pos + keep] = join_planes(lo[:keep], hi[:keep])
+            redo.append(pos + (~valid[:keep]).nonzero().flatten())
+        redo = torch.cat(redo)
+    else:
+        redo = torch.arange(m, device=device)
+    offsets = torch.arange(k, device=device)
+    for i in range(0, redo.numel(), _REHASH_BATCH):
+        idx = redo[i : i + _REHASH_BATCH]
+        lengths = torch.full((idx.numel(),), k, dtype=torch.int64, device=device)
+        out[idx], _ = murmur3_bytes_batch(stream[idx[:, None] + offsets], lengths, p.seed)
+    return out if p.use64 else out & 0xFFFFFFFF
 
 
 def _kmer_hash_pool_scalar(seqs: list[str], p: SketchParams) -> np.ndarray:

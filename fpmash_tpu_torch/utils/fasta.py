@@ -2,14 +2,15 @@
 
 The pure-Python streaming parser only; the JAX package's native C++ batch
 reader (``native/``) is asserted equivalent to it there and is not ported
-yet.  Records are ``(name, comment, sequence)`` tuples.
+yet.  Records are ``(name, comment, sequence)`` tuples.  The writers of
+``generate`` (:func:`write_fasta`, :func:`write_fastq`) are copied too.
 """
 
 from __future__ import annotations
 
 import gzip
 import io
-from typing import Iterator, NamedTuple
+from typing import Iterable, Iterator, NamedTuple
 
 
 class SeqRecord(NamedTuple):
@@ -92,3 +93,27 @@ def _read_fastq(fh) -> Iterator[SeqRecord]:
             return
         if header.startswith("@"):
             header = header[1:]
+
+
+def write_fasta(path: str, records: Iterable[tuple[str, str]], width: int = 70) -> None:
+    """Write ``(header, seq)`` pairs as FASTA with fixed line width.
+
+    Mirrors lyn2vec's generator output (lyn2vec.py:211-225, width 70).
+    """
+    with open(path, "w") as fh:
+        for header, seq in records:
+            fh.write(f">{header}\n")
+            for i in range(0, len(seq), width):
+                fh.write(seq[i : i + width] + "\n")
+
+
+def write_fastq(path: str, records: Iterable[tuple[str, str]], width: int = 70) -> None:
+    """Write ``(header, seq)`` pairs as FASTQ with dummy qualities.
+
+    The reference writes the sequence wrapped at 70 chars but the quality
+    line unwrapped at full length (lyn2vec.py:217-223) — preserved.
+    """
+    with open(path, "w") as fh:
+        for header, seq in records:
+            wrapped = "\n".join(seq[i : i + width] for i in range(0, len(seq), width))
+            fh.write(f"@{header}\n{wrapped}\n+\n{'I' * len(seq)}\n")

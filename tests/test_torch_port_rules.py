@@ -5,7 +5,8 @@ its plain PyTorch version; without a usable card they skip with a reason.
 On a machine with one (JAX need not be installed there), run them with
 ``python -m pytest tests/test_torch_port_rules.py -m gpu --noconftest``
 (the new kernels' own ``gpu`` tests are in tests/test_torch_kmer_variants.py,
-tests/test_torch_row_sort.py and tests/test_torch_fingerprint.py).
+tests/test_torch_row_sort.py and tests/test_torch_fingerprint.py, the
+windowed sketches' in tests/test_torch_winnow.py).
 """
 
 import ast
@@ -117,13 +118,36 @@ def test_chip_smoke_fingerprint_step_count_loads_no_jax():
     assert _new_jax_modules(_SMOKE_FP_STEPS) == []
 
 
-@pytest.mark.parametrize("verb", ["triangle", "screen"])
-def test_comparison_verbs_default_to_cuda(monkeypatch, golden_dir, verb):
+@pytest.mark.parametrize("verb", ["triangle", "screen", "find", "contain", "taxscreen",
+                                  "sketch -W"])
+def test_comparison_verbs_default_to_cuda(monkeypatch, golden_dir, tmp_path, verb):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     msh = str(golden_dir / "mash_ref" / "genome1.fna.msh")
-    argv = [msh] if verb == "triangle" else [msh, str(golden_dir / "new_data" / "reads1.fastq")]
+    fastq = str(golden_dir / "new_data" / "reads1.fastq")
+    fasta = str(golden_dir / "cfl" / "DNA1.fasta")
+    argv = {"triangle": ["triangle", msh], "screen": ["screen", msh, fastq],
+            "find": ["find", fasta, fastq], "contain": ["contain", msh, fastq],
+            "taxscreen": ["taxscreen", msh, fastq, "-t", str(tmp_path)],
+            "sketch -W": ["sketch", "-W", fasta, "-o", str(tmp_path / "w")]}[verb]
     with pytest.raises(RuntimeError, match="--device cpu"):
-        port_main([verb, *argv])
+        port_main(argv)
+    assert not (tmp_path / "w.msw").exists()
+
+
+def _verbs(parser) -> list[str]:
+    import argparse
+
+    action = next(a for a in parser._actions if isinstance(a, argparse._SubParsersAction))
+    return list(action.choices)
+
+
+def test_port_cli_registers_every_verb_of_the_jax_cli():
+    from fpmash_tpu.cli import build_parser as jax_parser
+    from fpmash_tpu_torch.cli import build_parser
+
+    jax_verbs = _verbs(jax_parser())
+    assert len(jax_verbs) == 13  # ten Mash verbs and three lyn2vec ones
+    assert _verbs(build_parser()) == jax_verbs
 
 
 def test_cuda_device_without_a_card_raises(monkeypatch, golden_dir, tmp_path):

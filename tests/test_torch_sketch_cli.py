@@ -176,17 +176,22 @@ def test_line_cap_matches_jax(golden_dir, monkeypatch):
             assert np.array_equal(x.hashes, y.hashes)
 
 
-def test_unported_routes_say_so(golden_dir, tmp_path):
+def test_unported_routes_say_so(golden_dir, tmp_path, capsys):
+    """An unknown factorization is refused before any work.  ``-W``, which
+    raised here until windowed sketches were ported, now gives the JAX
+    package's ``.msw`` bytes and ``dist -W`` lines."""
     fasta = str(golden_dir / "cfl" / "DNA3.fasta")
     with pytest.raises(ValueError, match=r"unknown factorization 'LYNDON'.*'CFL_COMB'.*'ICFL'"):
         port_main(["sketch", "--direct-fp", fasta, "--factorization", "LYNDON",
                    "-o", str(tmp_path / "x"), "--device", "cpu"])
     assert not (tmp_path / "x.msh").exists()
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        port_main(["sketch", "-W", fasta, "-o", str(tmp_path / "x"), "--device", "cpu"])
-    assert not (tmp_path / "x.msh").exists() and not (tmp_path / "x.msw").exists()
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        port_main(["dist", "-W", fasta, fasta, "--device", "cpu"])
+    assert port_main(["sketch", "-W", fasta, "-o", str(tmp_path / "x"), "--device", "cpu"]) == 0
+    assert jax_main(["sketch", "-W", fasta, "-o", str(tmp_path / "j")]) == 0
+    assert not (tmp_path / "x.msh").exists()
+    assert (tmp_path / "x.msw").read_bytes() == (tmp_path / "j.msw").read_bytes()
+    port = _dist_lines(port_main, ["dist", "-W", fasta, fasta, "--device", "cpu"], capsys)
+    assert port == _dist_lines(jax_main, ["dist", "-W", fasta, fasta], capsys)
+    assert len(port.splitlines()) == 25
 
 
 @pytest.mark.parametrize("family", ["ICFL", "ICFL_COMB", "CFL_COMB", "CFL_ICFL_COMB-10"])
