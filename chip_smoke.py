@@ -15,7 +15,15 @@ classic k-mer MinHash workflow at E. coli scale (three 5 Mbase genomes and a
 ``sketch -k 16``, ``dist``, ``screen``); and BASELINE config 4, all-pairs
 distance over 10 000 sketches of s = 1000 (the sorted comparison K9 over
 10^8 pairs, held pair for pair against the walk K2; ``dist`` of 10 000 x
-100 sketches, ``triangle`` and ``triangle -fp`` over 1 000).  The five
+100 sketches, ``triangle`` and ``triangle -fp`` over 1 000).  The
+multi-device layer (``fpmash_tpu_torch/parallel/``) runs the sharded routes
+on an explicit mesh of 4 shards (one a card where there are several, else
+all 4 on cuda:0), each held byte for byte against one device: BASELINE
+config 5 (1 000 000 reads of 150 bases, ``sketch -r -m 2`` and ``sketch
+-r``, then ``dist``), both fingerprint paths' FASTAs, config 4's 10^8
+pairs, ``dist``, ``triangle`` and ``triangle -fp``, ``dist -fp`` through
+``sharded_all_pairs_walk``, ``pipeline_step``, and the CLI under
+``FPMASH_DEVICES``.  The five
 kernels that the JAX package keeps unrouted run through the entry points of
 the JAX functions they replace, at those paths' shapes and on their data:
 K13 (``fingerprint_hashes_fused(variant="inline")``) on the CFL path's
@@ -1637,7 +1645,9 @@ def phase_config4(dev, rng, work: Path):
     pairs against K2's walk on the card (equal to the literal walk on
     sorted distinct lists), and samples of the CLI lines against the
     literal walk and ``compare_fingerprints``.  Returns the launches, K9's
-    record at this shape, K2's times and bound at the 10^8 pairs, and the walls."""
+    record at this shape, K2's times and bound at the 10^8 pairs, the walls,
+    and the phase's data for :func:`phase_multi_device`: the sketches' lists
+    (``refs``, ``qrys``, ``fp``) and the all-pairs ``common`` and ``denom``."""
     import dataclasses
     import io
 
@@ -1800,7 +1810,272 @@ def phase_config4(dev, rng, work: Path):
           f"{k9['all_pairs_bound_ms']:.4f} ms; K2 at the same pairs {k2['all_pairs_ms']:.4f} ms "
           f"({k2['all_pairs_launch_ms']:.4f} ms through the C entry point), bound "
           f"{k2['all_pairs_bound_ms']:.4f} ms; launches {launches}")
-    return launches, k9, k2, walls
+    data = dict(refs=refs, qrys=lists[N_ALL:], fp=fp_lists, common=common, denom=denom)
+    return launches, k9, k2, walls, data
+
+
+# ---------------------------------------------------------------------- #
+# the multi-device layer: the sharded routes on a mesh of 4 shards, byte for
+# byte against one device
+# ---------------------------------------------------------------------- #
+
+#: BASELINE config 5: reads of the classic phase's g1, sketched sharded
+CONFIG5_READS, CONFIG5_READ_LEN = 1_000_000, 150
+#: shards of the phase's mesh; reads of config 5 in the CLI check's FASTQ
+N_SHARDS, CLI_READS = 4, 100_000
+
+
+def _shard_mesh():
+    """The phase's mesh: shard ``i`` on card ``i % min(4, count)``, so 4
+    shards on cuda:0 on a machine with one card; and how it is laid out."""
+    import torch
+
+    cards = min(N_SHARDS, torch.cuda.device_count())
+    mesh = tuple(torch.device("cuda", i % cards) for i in range(N_SHARDS))
+    if cards == 1:
+        return mesh, (f"{N_SHARDS} shards on cuda:0 (one card: the shards share its stream "
+                      "and run one after another; not a scaling result)")
+    return mesh, f"{N_SHARDS} shards on cards {list(range(cards))} (shard i on card i % {cards})"
+
+
+def _check_same(what: str, got, want) -> None:
+    """Raise unless each array (numpy, or a tensor) of ``got`` equals the
+    one of ``want`` exactly."""
+    import numpy as np
+
+    for g, w in zip(got, want):
+        g, w = (x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x) for x in (g, w))
+        if g.shape != w.shape or not np.array_equal(g, w):
+            raise AssertionError(f"{what}: the sharded result differs from one device's")
+
+
+def phase_multi_device(dev, rng, work: Path, config4: dict, seqs_a):
+    """The multi-device layer (``fpmash_tpu_torch/parallel/``) on an explicit
+    mesh of 4 shards (:func:`_shard_mesh`), every result held byte for byte
+    against the one-device run of the same call, with the counts set to 0
+    just before and the phase's launches printed:
+
+    1. BASELINE config 5: 1 000 000 reads of 150 bases of the classic
+       phase's g1 (1 % substitutions, half reverse-complemented, FASTQ),
+       ``sketch -r -m 2`` (the collect-all route) and ``sketch -r`` (the
+       direct route), each on 1 and on 4 shards, with the wall, the chunks
+       each shard and card took and the peak memory of each card; then
+       ``dist`` of the sketch against the classic phase's three genomes;
+    2. both FASTAs of the CFL (K1) and ICFL_COMB (K3, K4) main paths,
+       sharded, against the ``.msh`` files their CLI runs wrote;
+    3. config 4: K9 over all 10^8 pairs against the result ``phase_config4``
+       computed, ``dist``'s 10 000 x 100, ``triangle`` and ``triangle -fp``
+       over 1 000;
+    4. ``dist -fp`` of the CFL path's 256 x 256 sketches through
+       ``sharded_all_pairs_walk`` (K2) and through the route;
+    5. ``pipeline_step`` on the CFL path's 512 000 windows (s = 1000)
+       against config 4's 10 000 sketches, whose sketch must also be the
+       1000 smallest distinct K1 hashes;
+    6. the CLI (``sketch --direct-fp``, ``sketch -r -m 2``, ``dist``,
+       ``triangle``) under ``FPMASH_DEVICES`` set to the card count and to 1.
+    """
+    import io
+    import os
+
+    import numpy as np
+    import torch
+
+    from fpmash_tpu_torch.cli import main
+    from fpmash_tpu_torch.models import sketch as sketch_mod
+    from fpmash_tpu_torch.models.distance import all_pairs_dist, common_denom
+    from fpmash_tpu_torch.models.fingerprint import extract_reads
+    from fpmash_tpu_torch.models.sketch import Sketch, SketchParams
+    from fpmash_tpu_torch.ops import compare, fused_cuda, walk_cuda
+    from fpmash_tpu_torch.ops.walk import pad_lists
+    from fpmash_tpu_torch.parallel import sharded
+    from fpmash_tpu_torch.utils.fasta import read_sequences
+
+    t_phase = time.perf_counter()
+    mesh, layout = _shard_mesh()
+    print(f"multi-device: mesh {[str(d) for d in mesh]}: {layout}")
+    out = work / "config5"
+    out.mkdir(parents=True, exist_ok=True)
+    _reset_counts()
+
+    # 1. config 5
+    t0 = time.perf_counter()
+    code = np.zeros(256, np.uint8)
+    code[np.frombuffer(b"ACGT", np.uint8)] = np.arange(4, dtype=np.uint8)
+    g1 = next(read_sequences(str(work / "classic" / "g1.fna"))).seq
+    _write_reads(out / "reads.fq", rng, code[np.frombuffer(g1.encode(), np.uint8)],
+                 CONFIG5_READS, CONFIG5_READ_LEN, 0.01)
+    written = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    records = list(read_sequences(str(out / "reads.fq")))
+    print(f"multi-device: config 5: {len(records)} reads of {CONFIG5_READ_LEN} bases of g1 "
+          f"written in {written:.1f} s, parsed in {time.perf_counter() - t0:.1f} s")
+    k = 21
+    n = len(records) * (CONFIG5_READ_LEN + k - 1) - (k - 1)
+    n_chunks = sum(1 for pos in range(0, n, sketch_mod._DIRECT_CHUNK - (k - 1))
+                   if min(pos + sketch_mod._DIRECT_CHUNK, n) - pos >= k)
+    sketches = {}
+    for mode, tag, params in (
+            ("sketch -r -m 2", "reads_m2", SketchParams(reads=True, counts=True, min_cov=2)),
+            ("sketch -r", "reads", SketchParams(reads=True, counts=True))):
+        for shards, m in ((1, (dev,)), (N_SHARDS, mesh)):
+            devices = sorted(set(m), key=str)
+            for d in devices:
+                torch.cuda.reset_peak_memory_stats(d)
+            before = _launches()
+            t0 = time.perf_counter()
+            sk = Sketch(params)
+            sk.init_from_sequences(records, name=str(out / "reads.fq"), merge=True, device=dev,
+                                   mesh=m)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            path = out / f"{tag}_{shards}.msh"
+            sk.write_msh(str(path))
+            sketches[mode, shards] = path
+            after = _launches()
+            chunk_launches = sum(after[key] - before[key] for key in ("kmer:topk8", "kmer:masked"))
+            per_shard = [len(range(i, n_chunks, shards)) for i in range(shards)]
+            per_card = {str(d): sum(c for c, x in zip(per_shard, m) if x == d) for d in devices}
+            peaks = {str(d): round(torch.cuda.max_memory_allocated(d) / 2**30, 3)
+                     for d in devices}
+            print(f"multi-device: config 5 {mode}, {shards} shard(s): {wall:.3f} s wall "
+                  f"({len(records) * CONFIG5_READ_LEN / wall:.4g} bases/s); {n_chunks} chunks "
+                  f"of {sketch_mod._DIRECT_CHUNK} bases, per shard {per_shard}, per card "
+                  f"{per_card}; K5/K6 launches {chunk_launches}; peak memory GiB {peaks}")
+        if sketches[mode, 1].read_bytes() != sketches[mode, N_SHARDS].read_bytes():
+            raise AssertionError(f"config 5 {mode}: the sharded .msh differs from one device's")
+    del records
+    genomes, reads = Sketch(), Sketch()
+    genomes.load_msh(str(work / "classic" / "genomes.msh"))
+    reads.load_msh(str(sketches["sketch -r -m 2", N_SHARDS]))
+    lists = ([r.hashes for r in genomes.references], [r.hashes for r in reads.references])
+    _check_same("config 5 dist", common_denom(*lists, 1000, device=dev, mesh=mesh),
+                common_denom(*lists, 1000, device=dev))
+    dists = [res.distance for _, _, res in all_pairs_dist(genomes, reads, device=dev, mesh=mesh)]
+    if not dists[0] < dists[1] < dists[2]:
+        raise AssertionError(f"config 5 reads of g1 should be nearest g1, then g2, g3: {dists}")
+    print(f"multi-device: config 5: both sketches byte-identical on 1 and {N_SHARDS} shards; "
+          f"dist genomes.msh reads.msh (one query, so one shard) {dists}")
+
+    # 2. the fingerprint main paths' FASTAs
+    t0 = time.perf_counter()
+    for family in ("CFL", "ICFL_COMB"):
+        for tag in ("a", "b"):
+            before = _launches()
+            sk = Sketch(SketchParams().for_fingerprint())
+            sk.init_from_reads_fingerprint(extract_reads(str(work / family / f"{tag}.fasta"),
+                                                         rev_com=True),
+                                           family, device=dev, mesh=mesh)
+            path = work / family / f"{tag}_sharded.msh"
+            sk.write_msh(str(path))
+            if path.read_bytes() != (work / family / f"{tag}.msh").read_bytes():
+                raise AssertionError(f"{family} {tag}.fasta: the sharded .msh differs from the "
+                                     "one-device CLI's")
+            after = _launches()
+            launched = {key: after[key] - before[key] for key in MAIN_PATH_KERNELS[family]
+                        if key != "walk"}
+            if set(launched.values()) != {N_SHARDS}:
+                raise AssertionError(f"{family} {tag}.fasta: not one launch a shard: {launched}")
+    print(f"multi-device: sketch --direct-fp of the CFL and ICFL_COMB paths' a.fasta and b.fasta "
+          f"({N_READS * READ_LEN} windows each) on {N_SHARDS} shards byte-identical to the CLI's "
+          f"one-device .msh, one launch of each kernel a shard ({time.perf_counter() - t0:.1f} s)")
+
+    # 3. config 4
+    t0 = time.perf_counter()
+    got = compare.all_pairs_common_denom(config4["refs"], config4["refs"], SKETCH, device=dev,
+                                         mesh=mesh)
+    wall = time.perf_counter() - t0
+    _check_same("config 4 all pairs", got, (config4["common"], config4["denom"]))
+    del got
+    refs, tri = config4["refs"], config4["refs"][:N_TRI]
+    _check_same("config 4 dist", common_denom(refs, config4["qrys"], SKETCH, device=dev, mesh=mesh),
+                common_denom(refs, config4["qrys"], SKETCH, device=dev))
+    _check_same("config 4 triangle", common_denom(tri, tri, SKETCH, device=dev, mesh=mesh),
+                common_denom(tri, tri, SKETCH, device=dev))
+    _check_same("config 4 triangle -fp",
+                compare.all_pairs_positional(config4["fp"], device=dev, mesh=mesh),
+                compare.all_pairs_positional(config4["fp"], device=dev))
+    print(f"multi-device: config 4: K9 over all {N_ALL ** 2} pairs on {N_SHARDS} shards equals "
+          f"phase_config4's result ({wall:.3f} s wall); dist {N_ALL} x {N_QRY}, triangle and "
+          f"triangle -fp over {N_TRI} equal one device's")
+
+    # 4. dist -fp of the CFL path through sharded_all_pairs_walk
+    a, b = Sketch(), Sketch()
+    a.load_msh(str(work / "CFL" / "a.msh"))
+    b.load_msh(str(work / "CFL" / "b.msh"))
+    s = min(a.params.sketch_size, b.params.sketch_size)
+    lists = ([r.hashes for r in a.references], [r.hashes for r in b.references])
+    args = (*pad_lists(lists[0], dev), *pad_lists(lists[1], dev), s)
+    before = walk_cuda.LAUNCHES
+    got = sharded.sharded_all_pairs_walk(mesh, *args)
+    if walk_cuda.LAUNCHES - before != N_SHARDS:
+        raise AssertionError("sharded_all_pairs_walk did not launch K2 once a shard")
+    _check_same("dist -fp (sharded_all_pairs_walk)", got, walk_cuda.pairwise_walk(*args))
+    _check_same("dist -fp (route)", common_denom(*lists, s, device=dev, mesh=mesh),
+                common_denom(*lists, s, device=dev))
+    print(f"multi-device: dist -fp a.msh b.msh ({len(lists[0])} x {len(lists[1])}) through "
+          f"sharded_all_pairs_walk and the route on {N_SHARDS} shards equals one device's")
+
+    # 5. pipeline_step
+    flat, starts, lengths = _main_stream(dev, seqs_a)
+    rows = flat[starts[:, None] + torch.arange(WINDOW, device=dev)].contiguous()
+    ref, ref_len = pad_lists(refs, dev)
+    walls = {}
+    for shards, m in ((N_SHARDS, mesh), (1, (dev,))):
+        t0 = time.perf_counter()
+        step = sharded.pipeline_step(m, rows, lengths, ref, ref_len, seed=42, sketch_size=SKETCH)
+        torch.cuda.synchronize()
+        walls[shards] = time.perf_counter() - t0
+        if shards == N_SHARDS:
+            got = step
+    _check_same("pipeline_step", got, step)
+    h1 = fused_cuda.fingerprint_hashes(flat, starts, lengths, 42)[0].cpu().numpy().view(np.uint64)
+    if not np.array_equal(got[0].cpu().numpy().view(np.uint64), np.unique(h1)[:SKETCH]):
+        raise AssertionError("pipeline_step's sketch is not the 1000 smallest distinct K1 hashes")
+    print(f"multi-device: pipeline_step ({rows.shape[0]} windows, s = {SKETCH}, {len(refs)} "
+          f"reference sketches): {N_SHARDS} shards {walls[N_SHARDS]:.3f} s, one device "
+          f"{walls[1]:.3f} s, equal; its sketch is the {SKETCH} smallest distinct K1 hashes; "
+          f"most hashes shared with a reference {int(got[1].max())}")
+    del rows, ref, ref_len, got, step
+
+    # 6. the CLI under FPMASH_DEVICES
+    count = torch.cuda.device_count()
+    with open(out / "reads.fq", "rb") as src, open(out / "cli.fq", "wb") as dst:
+        for _, line in zip(range(4 * CLI_READS), src):
+            dst.write(line)
+    commands = {
+        "sketch --direct-fp": ["sketch", "--direct-fp", str(work / "CFL" / "a.fasta")],
+        "sketch -r -m 2": ["sketch", "-r", "-m", "2", str(out / "cli.fq")],
+        "dist": ["dist", str(work / "classic" / "genomes.msh"),
+                 str(sketches["sketch -r -m 2", 1])],
+        "triangle": ["triangle", str(work / "classic" / "genomes.msh")],
+    }
+    outputs = {}
+    saved = os.environ.get("FPMASH_DEVICES")
+    try:
+        for n in (count, 1):
+            os.environ["FPMASH_DEVICES"] = str(n)
+            for name, argv in commands.items():
+                std = io.StringIO()
+                prefix = ["-o", str(out / f"cli_{len(outputs)}")]
+                with contextlib.redirect_stdout(std), contextlib.redirect_stderr(io.StringIO()):
+                    rc = main([*argv, *(prefix if argv[0] == "sketch" else [])])
+                assert rc == 0, (name, rc)
+                outputs[name, n] = (std.getvalue() if argv[0] != "sketch"
+                                    else Path(prefix[1] + ".msh").read_bytes())
+    finally:
+        if saved is None:
+            os.environ.pop("FPMASH_DEVICES", None)
+        else:
+            os.environ["FPMASH_DEVICES"] = saved
+    for name in commands:
+        if outputs[name, count] != outputs[name, 1]:
+            raise AssertionError(f"{name}: FPMASH_DEVICES={count} and =1 differ")
+    where = ("one card: both take the one-device path, so this checks the plumbing, not a "
+             "multi-card result" if count == 1 else f"{count} cards against one")
+    print(f"multi-device: CLI {list(commands)} byte-identical under FPMASH_DEVICES={count} and "
+          f"=1 ({where})")
+    print(f"multi-device: launches in the phase {_launches()}; the phase took "
+          f"{time.perf_counter() - t_phase:.1f} s")
 
 
 # ---------------------------------------------------------------------- #
@@ -2447,7 +2722,10 @@ def main() -> int:
         t["max_abs_err"] = max(t["max_abs_err"], kmer_errs[key])
 
     err9 = phase_k9(dev, rng)
-    config4_launches, k9, k2_all_pairs, _ = phase_config4(dev, rng, work)
+    config4_launches, k9, k2_all_pairs, _, config4 = phase_config4(dev, rng, work)
+    # a generator of its own: the later phases keep their inputs
+    phase_multi_device(dev, np.random.default_rng(2027), work, config4, seqs_a)
+    del config4
     k2.update(k2_all_pairs)
     k9["max_abs_err"] = max(k9["max_abs_err"], err9)
 

@@ -4,7 +4,8 @@ The sketch options are those of ``fpmash_tpu/commands/common.py``
 (``Command::useSketchOptions``, Command.cpp:183-228), with the same
 identifiers and defaults, and the parameter setup follows
 sketchParameterSetup.cpp:9-106, including the fingerprint, protein and
-alphabet overrides, and the windowed ones of ``-W``.
+alphabet overrides, and the windowed ones of ``-W``.  ``--device`` also
+names the mesh of the sharded routes (:func:`device_and_mesh`).
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import argparse
 import sys
 from dataclasses import replace
 
+from fpmash_tpu_torch.device import resolve_device
 from fpmash_tpu_torch.models.sketch import SketchParams
 
 ALPHABET_PROTEIN = "ACDEFGHIKLMNPQRSTVWY"
@@ -47,9 +49,21 @@ def add_device_option(parser: argparse.ArgumentParser) -> None:
     parser.add_argument(
         "--device",
         default="cuda",
-        help="Device to compute on: cuda (the CUDA kernels; an error if no card "
-        "is usable) or cpu (their plain PyTorch versions). [cuda]",
+        help="Device to compute on: cuda (the CUDA kernels on every visible card, "
+        "at most FPMASH_DEVICES of them; an error if no card is usable), cuda:N "
+        "(card N alone) or cpu (the kernels' plain PyTorch versions). [cuda]",
     )
+
+
+def device_and_mesh(name: str):
+    """``--device``'s ``torch.device``, and the mesh that the sharded routes
+    run on (``parallel/sharded.visible_devices``: the first
+    ``FPMASH_DEVICES`` cards for ``cuda``, by default all; else the device
+    alone).  On one card, or on the CPU, the mesh is that one device."""
+    from fpmash_tpu_torch.parallel import sharded
+
+    device = resolve_device(name)
+    return device, sharded.visible_devices(device)
 
 
 def parse_size(text: str | None) -> int:

@@ -29,8 +29,12 @@ import sys
 
 import numpy as np
 
-from fpmash_tpu_torch.commands.common import ALPHABET_PROTEIN, add_device_option, expand_inputs
-from fpmash_tpu_torch.device import resolve_device
+from fpmash_tpu_torch.commands.common import (
+    ALPHABET_PROTEIN,
+    add_device_option,
+    device_and_mesh,
+    expand_inputs,
+)
 from fpmash_tpu_torch.models.sketch import Sketch, _kmer_distinct_counts
 from fpmash_tpu_torch.scalar.stats import format_g, screen_pvalue
 
@@ -66,7 +70,7 @@ def estimate_identity(common: int, denom: int, kmer_size: int) -> float:
 
 
 def run(args) -> int:
-    device = resolve_device(args.device)
+    device, mesh = device_and_mesh(args.device)
     ref = Sketch()
     ref.load_msh(args.reference)
 
@@ -89,10 +93,11 @@ def run(args) -> int:
     if args.fingerprint:
         # the fork's rewrite uses the reference table size as setSize
         return _run_fp_query(args, ref, set_size, device)
-    return _run_streaming(args, ref, cat, seg_len, device)
+    return _run_streaming(args, ref, cat, seg_len, device, mesh)
 
 
-def _run_streaming(args, ref: Sketch, cat: np.ndarray, seg_len: np.ndarray, device) -> int:
+def _run_streaming(args, ref: Sketch, cat: np.ndarray, seg_len: np.ndarray, device,
+                   mesh) -> int:
     """Upstream semantics: stream all query k-mers; report per reference."""
     from fpmash_tpu_torch.ops.bottomk import estimate_set_size
     from fpmash_tpu_torch.utils.fasta import read_sequences
@@ -117,7 +122,7 @@ def _run_streaming(args, ref: Sketch, cat: np.ndarray, seg_len: np.ndarray, devi
     # distinct query-hash values + multiplicities, computed on the device:
     # only they come down, never the 8 B/base pool (CommandScreen.cpp:81-151
     # scale rationale)
-    values, counts = _kmer_distinct_counts(seqs, p, device)
+    values, counts = _kmer_distinct_counts(seqs, p, device, mesh)
 
     # Upstream's p-value uses the *query stream's* cardinality estimate as
     # setSize (the same estimateSetSize that reads-mode sketches store as

@@ -17,8 +17,7 @@ import os
 import sys
 from collections import defaultdict
 
-from fpmash_tpu_torch.commands.common import add_device_option
-from fpmash_tpu_torch.device import resolve_device
+from fpmash_tpu_torch.commands.common import add_device_option, device_and_mesh
 from fpmash_tpu_torch.models.sketch import Sketch, _kmer_distinct_counts
 from fpmash_tpu_torch.utils.taxdb import TaxCounts, TaxDB
 
@@ -41,7 +40,7 @@ def add_parser(sub):
 
 
 def run(args) -> int:
-    device = resolve_device(args.device)
+    device, mesh = device_and_mesh(args.device)
     names = os.path.join(args.taxonomy_dir, "names.dmp")
     nodes = os.path.join(args.taxonomy_dir, "nodes.dmp")
     if not (os.path.exists(names) and os.path.exists(nodes)):
@@ -112,7 +111,7 @@ def run(args) -> int:
     if not seqs:
         print("\nERROR: Did not find sequence records in inputs", file=sys.stderr)
         return 1
-    values, vcounts = _kmer_distinct_counts(seqs, p, device)
+    values, vcounts = _kmer_distinct_counts(seqs, p, device, mesh)
     pool_count = dict(zip(values.tolist(), vcounts.tolist()))
 
     min_cov = 1

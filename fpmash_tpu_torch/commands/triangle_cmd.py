@@ -27,11 +27,11 @@ import numpy as np
 
 from fpmash_tpu_torch.commands.common import (
     add_device_option,
+    device_and_mesh,
     add_sketch_options,
     expand_inputs,
     sketch_params_from_args,
 )
-from fpmash_tpu_torch.device import resolve_device
 from fpmash_tpu_torch.models.distance import (
     PairResult,
     common_denom,
@@ -61,12 +61,12 @@ def add_parser(sub):
     return p
 
 
-def _positional_results(hashes, edge: bool, max_d: float, max_p: float, device):
+def _positional_results(hashes, edge: bool, max_d: float, max_p: float, device, mesh):
     """``result(i, j)`` of the positional comparison for every pair."""
     from fpmash_tpu_torch.ops.compare import all_pairs_positional
 
     with trace("all-pairs-positional", pairs=len(hashes) ** 2):
-        matches, minlen = all_pairs_positional(hashes, device=device)
+        matches, minlen = all_pairs_positional(hashes, device=device, mesh=mesh)
     distance = np.where(minlen > 0, 1.0 - matches / np.maximum(minlen, 1), 1.0)
     pvalue = chisq_sf(matches, 1) if edge else None
 
@@ -81,11 +81,11 @@ def _positional_results(hashes, edge: bool, max_d: float, max_p: float, device):
     return result
 
 
-def _merge_results(sk: Sketch, edge: bool, max_d: float, max_p: float, device):
+def _merge_results(sk: Sketch, edge: bool, max_d: float, max_p: float, device, mesh):
     """``result(i, j)`` of the merge-join comparison for every pair."""
     p = sk.params
     hashes = [r.hashes for r in sk.references]
-    common, denom = common_denom(hashes, hashes, p.sketch_size, device=device)
+    common, denom = common_denom(hashes, hashes, p.sketch_size, device=device, mesh=mesh)
 
     def result(i, j):
         c, d = int(common[i, j]), int(denom[i, j])
@@ -98,7 +98,7 @@ def _merge_results(sk: Sketch, edge: bool, max_d: float, max_p: float, device):
 
 
 def run(args) -> int:
-    device = resolve_device(args.device)
+    device, mesh = device_and_mesh(args.device)
     edge = args.edge or args.pvalue is not None or args.distance is not None
     max_p = args.pvalue if args.pvalue is not None else 1.0
     max_d = args.distance if args.distance is not None else 1.0
@@ -114,14 +114,14 @@ def run(args) -> int:
         if args.fingerprint and txt_inputs:
             sk.init_from_fingerprints(txt_inputs, device=device)
         if other_inputs:
-            sk.init_from_files(other_inputs, individual=individual, device=device)
+            sk.init_from_files(other_inputs, individual=individual, device=device, mesh=mesh)
 
     n = len(sk.references)
     if args.fingerprint:
         result = _positional_results([r.hashes for r in sk.references], edge, max_d, max_p,
-                                     device)
+                                     device, mesh)
     else:
-        result = _merge_results(sk, edge, max_d, max_p, device)
+        result = _merge_results(sk, edge, max_d, max_p, device, mesh)
 
     out = sys.stdout
     if not edge:

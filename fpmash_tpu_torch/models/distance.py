@@ -159,22 +159,25 @@ def k9_equals_walk(hashes_lists) -> bool:
     ) and not any(len(h) and int(h[-1]) == _PAD for h in hashes_lists)
 
 
-def common_denom(refs, qrys, sketch_size: int, *, device):
+def common_denom(refs, qrys, sketch_size: int, *, device, mesh=None):
     """``(common, denom)`` numpy ``int32 [len(refs), len(qrys)]`` of every
     pair on ``device``, the literal walk's: through the sorted comparison K9
     (``ops/compare.py``) where :func:`k9_equals_walk` holds for both sides,
     through the walk K2 (``ops/walk.py``) over the lists in their stored
-    order otherwise.  ``dist`` and ``triangle`` both route here."""
+    order otherwise.  ``dist`` and ``triangle`` both route here.  With a
+    ``mesh`` of several shards, either kernel's query axis is sharded over
+    it (``parallel/sharded.py``); the route does not depend on the mesh."""
     pairs = len(refs) * len(qrys)
+    shards = len(mesh) if mesh else 1
     if k9_equals_walk(refs) and (qrys is refs or k9_equals_walk(qrys)):
         from fpmash_tpu_torch.ops.compare import all_pairs_common_denom
 
-        with trace("all-pairs-compare", pairs=pairs):
-            return all_pairs_common_denom(refs, qrys, sketch_size, device=device)
+        with trace("all-pairs-compare", pairs=pairs, shards=shards):
+            return all_pairs_common_denom(refs, qrys, sketch_size, device=device, mesh=mesh)
     from fpmash_tpu_torch.ops.walk import all_pairs_walk
 
-    with trace("all-pairs-walk", pairs=pairs):
-        return all_pairs_walk(refs, qrys, sketch_size, device=device)
+    with trace("all-pairs-walk", pairs=pairs, shards=shards):
+        return all_pairs_walk(refs, qrys, sketch_size, device=device, mesh=mesh)
 
 
 def all_pairs_dist(
@@ -184,6 +187,7 @@ def all_pairs_dist(
     max_pvalue: float = -1.0,
     *,
     device,
+    mesh=None,
 ):
     """Ref x query pairwise Mash distance (CommandDistance::run semantics).
 
@@ -197,7 +201,8 @@ def all_pairs_dist(
     through the walk K2, as for ``triangle``.  The JAX device route
     (``fpmash_tpu/models/distance.py:166-221``) takes its sorted comparison
     for every non-decreasing list and reports ``common > denom`` on a
-    repeated hash; the port does not copy that defect.
+    repeated hash; the port does not copy that defect.  ``mesh``: see
+    :func:`common_denom`.
     """
     sketch_size = min(ref_sketch.params.sketch_size, qry_sketch.params.sketch_size)
     k = ref_sketch.params.kmer_size
@@ -207,6 +212,7 @@ def all_pairs_dist(
         [q.hashes for q in qry_sketch.references],
         sketch_size,
         device=device,
+        mesh=mesh,
     )
     for qi, q in enumerate(qry_sketch.references):
         for ri, r in enumerate(ref_sketch.references):

@@ -19,13 +19,15 @@ Counterpart of :mod:`fpmash_tpu.ops.compare`.
 * :func:`all_pairs_common_denom` puts the lists on the device once and runs
   the kernel's wrapper over blocks of reference rows, so that the
   ``[rows, Q]`` outputs of one launch stay bounded (a RefSeq-size
-  reference set does not fit one launch's outputs).  The TPU route's
-  multiple-of-8 padding, ``c << 16 | d`` packing, in-flight window and mesh
-  are not needed.
+  reference set does not fit one launch's outputs); given a mesh, the query
+  axis of each block is sharded over it (``parallel/sharded.py``).  The TPU
+  route's multiple-of-8 padding, ``c << 16 | d`` packing and in-flight
+  window are not needed.
 * :func:`positional_matches`, :func:`pairwise_positional` and
   :func:`all_pairs_positional` are the positional fingerprint comparison of
   ``triangle -fp`` (CommandTriangle.cpp:265-302), plain PyTorch as in the
-  JAX package (XLA there, not Pallas), in blocks of rows.
+  JAX package (XLA there, not Pallas), in blocks of rows (rows sharded
+  over a mesh when one is given).
 
 Lists are ``int64 [n, S]`` holding u64 hash bits (``ops/murmur3.py``) with
 ``int32 [n]`` lengths.
@@ -80,20 +82,24 @@ def pairwise_common_denom(ref: torch.Tensor, ref_len: torch.Tensor, qry: torch.T
     return common.view(R, Q), denom.view(R, Q)
 
 
-def all_pairs_common_denom(refs, qrys, sketch_size: int, *, device):
+def all_pairs_common_denom(refs, qrys, sketch_size: int, *, device, mesh=None):
     """Lists of sorted hash arrays -> ``(common, denom)`` as numpy
     ``int32 [len(refs), len(qrys)]``, through K9 on a CUDA device (its
-    plain version on the CPU), ``_TILE_PAIRS`` pairs at a time."""
-    from fpmash_tpu_torch.ops.compare_cuda import pairwise_common_denom as k9
+    plain version on the CPU), ``_TILE_PAIRS`` pairs at a time.  With a
+    ``mesh`` of several shards, the query axis of each tile is sharded over
+    it (``parallel/sharded.sharded_all_pairs``)."""
+    from fpmash_tpu_torch.parallel.sharded import mesh_of, sharded_all_pairs
 
-    ref, ref_len = pad_lists(refs, device)
-    qry, qry_len = pad_lists(qrys, device)
+    mesh = mesh_of(device, mesh)
+    ref, ref_len = pad_lists(refs, mesh[0])
+    qry, qry_len = pad_lists(qrys, mesh[0])
     R, Q = len(refs), len(qrys)
     common = np.zeros((R, Q), np.int32)
     denom = np.zeros((R, Q), np.int32)
     rows = max(1, _TILE_PAIRS // max(Q, 1))
     for r0 in range(0, R, rows):
-        c, d = k9(ref[r0 : r0 + rows], ref_len[r0 : r0 + rows], qry, qry_len, sketch_size)
+        c, d = sharded_all_pairs(mesh, ref[r0 : r0 + rows], ref_len[r0 : r0 + rows], qry, qry_len,
+                                 sketch_size)
         common[r0 : r0 + rows] = c.cpu().numpy()
         denom[r0 : r0 + rows] = d.cpu().numpy()
     return common, denom
@@ -110,26 +116,34 @@ def positional_matches(h1: torch.Tensor, l1: torch.Tensor, h2: torch.Tensor,
     return eq.sum(dim=-1).to(torch.int32), n
 
 
-def pairwise_positional(hashes: torch.Tensor, lens: torch.Tensor):
-    """All-pairs positional matches of one set ``[N, S]``:
-    ``matches[a, b] = sum(h[a, i] == h[b, i], i < min(len_a, len_b))``, in
+def pairwise_positional(hashes: torch.Tensor, lens: torch.Tensor, table=None, table_lens=None):
+    """Positional matches of the rows ``hashes [N, S]`` against ``table
+    [M, S]`` (by default the rows themselves, so all pairs of one set):
+    ``matches[a, b] = sum(h[a, i] == t[b, i], i < min(len_a, tlen_b))``, in
     blocks of rows holding at most ``_PLAIN_ELEMENTS`` comparisons.
-    Returns ``(matches int32[N, N], n int32[N, N])``."""
+    Returns ``(matches int32[N, M], n int32[N, M])``."""
+    if table is None:
+        table, table_lens = hashes, lens
     N, S = hashes.shape
-    n = torch.minimum(lens[:, None], lens[None, :])
-    matches = torch.zeros((N, N), dtype=torch.int32, device=hashes.device)
+    M = table.shape[0]
+    n = torch.minimum(lens[:, None], table_lens[None, :])
+    matches = torch.zeros((N, M), dtype=torch.int32, device=hashes.device)
     idx = torch.arange(S, device=hashes.device)
-    rows = max(1, _PLAIN_ELEMENTS // max(N * S, 1))
+    rows = max(1, _PLAIN_ELEMENTS // max(M * S, 1))
     for r0 in range(0, N, rows):
         blk = hashes[r0 : r0 + rows]
-        eq = (blk[:, None, :] == hashes[None, :, :]) & (idx < n[r0 : r0 + rows, :, None])
+        eq = (blk[:, None, :] == table[None, :, :]) & (idx < n[r0 : r0 + rows, :, None])
         matches[r0 : r0 + rows] = eq.sum(dim=-1).to(torch.int32)
     return matches, n
 
 
-def all_pairs_positional(fingerprint_hashes, *, device):
+def all_pairs_positional(fingerprint_hashes, *, device, mesh=None):
     """List of (unsorted) hash arrays -> ``(matches, minlen)`` as numpy
-    ``int32 [N, N]``, for the fingerprint triangle."""
-    h, lens = pad_lists(fingerprint_hashes, device)
-    matches, n = pairwise_positional(h, lens)
+    ``int32 [N, N]``, for the fingerprint triangle; with a ``mesh`` of
+    several shards, the rows are sharded over it."""
+    from fpmash_tpu_torch.parallel.sharded import mesh_of, sharded_all_pairs_positional
+
+    mesh = mesh_of(device, mesh)
+    h, lens = pad_lists(fingerprint_hashes, mesh[0])
+    matches, n = sharded_all_pairs_positional(mesh, h, lens)
     return matches.cpu().numpy(), n.cpu().numpy()

@@ -6,7 +6,8 @@ On a machine with one (JAX need not be installed there), run them with
 ``python -m pytest tests/test_torch_port_rules.py -m gpu --noconftest``
 (the new kernels' own ``gpu`` tests are in tests/test_torch_kmer_variants.py,
 tests/test_torch_row_sort.py and tests/test_torch_fingerprint.py, the
-windowed sketches' in tests/test_torch_winnow.py).
+windowed sketches' in tests/test_torch_winnow.py, the sharded routes' in
+tests/test_torch_parallel.py).
 """
 
 import ast
@@ -66,6 +67,39 @@ def test_no_module_of_the_port_loads_jax():
 ])
 def test_slice4_module_loads_no_jax(module):
     assert _new_jax_modules(f"import {module}") == []
+
+
+_SHARDED_ROUTES = """
+import numpy as np, torch
+from fpmash_tpu_torch.models.sketch import Sketch, SketchParams
+from fpmash_tpu_torch.models.distance import common_denom
+from fpmash_tpu_torch.parallel.mesh import default_mesh
+from fpmash_tpu_torch.utils.kfinger import compute_windows
+mesh = default_mesh(4, "cpu")
+sk = Sketch(SketchParams().for_fingerprint())
+sk.init_from_reads_fingerprint([("a", "ACGTTGCA" * 30), ("b", "TTGACA" * 40)], "ICFL_COMB",
+                               device=torch.device("cpu"), mesh=mesh)
+lists = [r.hashes for r in sk.references]
+common_denom(lists, lists, 1000, device=torch.device("cpu"), mesh=mesh)
+common_denom([np.sort(h) for h in lists], [np.sort(h) for h in lists], 1000,
+             device=torch.device("cpu"), mesh=mesh)
+assert compute_windows([3, 1, 2], 2) == [[1, 3], [1, 2]]
+"""
+
+
+@pytest.mark.parametrize("module", [
+    "fpmash_tpu_torch.parallel.mesh", "fpmash_tpu_torch.parallel.sharded",
+    "fpmash_tpu_torch.utils.kfinger", "fpmash_tpu_torch.commands.common",
+])
+def test_slice12_module_loads_no_jax(module):
+    assert _new_jax_modules(f"import {module}") == []
+
+
+def test_sharded_routes_load_no_jax():
+    """The sharded routes (``parallel/sharded.py`` through ``--direct-fp``,
+    the walk K2 and the sorted comparison K9, on 4 CPU shards) and the
+    k-finger helpers run without loading a JAX module."""
+    assert _new_jax_modules(_SHARDED_ROUTES) == []
 
 
 _NO_BUILD = """
