@@ -23,7 +23,15 @@ config 5 (1 000 000 reads of 150 bases, ``sketch -r -m 2`` and ``sketch
 -r``, then ``dist``), both fingerprint paths' FASTAs, config 4's 10^8
 pairs, ``dist``, ``triangle`` and ``triangle -fp``, ``dist -fp`` through
 ``sharded_all_pairs_walk``, ``pipeline_step``, and the CLI under
-``FPMASH_DEVICES``.  The five
+``FPMASH_DEVICES``.  The native host helpers (``fpmash_tpu_torch/native/``,
+built with g++ at first use) run last: config 5's FASTQ and the classic read
+set parsed by the native and the Python reader (same records, walls, peak
+resident memory), ``sketch -r -m 2`` of config 5's FASTQ through the CLI
+from the file (K5), the CRLF and whitespace edge files sketched and
+fingerprinted on the card against digests of the JAX CLI's outputs, and
+``fingerprint --type generalized ICFL_COMB`` of 2 000 reads of 10 000 bases
+at ``--split 2000`` (every chunk on the host factorizer) and ``--split 300``
+(K3).  The five
 kernels that the JAX package keeps unrouted run through the entry points of
 the JAX functions they replace, at those paths' shapes and on their data:
 K13 (``fingerprint_hashes_fused(variant="inline")``) on the CFL path's
@@ -540,7 +548,7 @@ def phase_main_path(dev, rng, work: Path, family: str):
     if missing:
         raise AssertionError(f"the {family} main path did not launch {missing}: {launches}")
     if scalar_rows["ok_false"] or scalar_rows["wide"]:
-        raise AssertionError(f"the {family} main path sent rows to the scalar model: {scalar_rows}")
+        raise AssertionError(f"the {family} main path sent rows to the host: {scalar_rows}")
 
     # dist: one line per pair, finite values, and a sample against the literal walk
     lines = dist_out.read_text().splitlines()
@@ -570,7 +578,7 @@ def phase_main_path(dev, rng, work: Path, family: str):
     print(f"main path {family}: dist -fp a.msh b.msh ({pairs} pairs): {walls['dist']:.3f} s "
           f"wall, {pairs / walls['dist']:.1f} pairs/s; e2e "
           f"{2 * bases / sum(walls.values()):.1f} bases/s; launches {launches}; "
-          f"rows sent to the scalar model {scalar_rows}")
+          f"rows factorized on the host {scalar_rows}")
     return launches, seqs_a
 
 
@@ -2663,6 +2671,324 @@ def phase_host_verbs(work: Path):
     return launches
 
 
+# ---------------------------------------------------------------------- #
+# the native host helpers: the FASTA/FASTQ reader and the host factorizer
+# ---------------------------------------------------------------------- #
+
+
+def edge_files() -> dict:
+    """Small FASTA/FASTQ files on which the JAX package's two readers
+    disagree (CRLF line ends with and without comments, blanks in sequence
+    lines, CRLF FASTQ, blank lines between FASTQ records, a FASTQ sequence
+    split over two lines) and one with a non-ASCII byte: ``{name: bytes}``."""
+    import numpy as np
+
+    rng = np.random.default_rng(13)
+    lut = np.frombuffer(b"ACGT", np.uint8)
+    seqs = [lut[rng.integers(0, 4, size=n)].tobytes().decode() for n in (300, 240, 180)]
+    quals = ["I" * len(s) for s in seqs]
+    return {
+        "crlf_comments.fa": "".join(f">r{i} sample {i}\r\n{s[:150]}\r\n{s[150:]}\r\n"
+                                    for i, s in enumerate(seqs)).encode(),
+        "crlf_plain.fa": "".join(f">r{i}\r\n{s[:100]}\r\n{s[100:]}\r\n"
+                                 for i, s in enumerate(seqs)).encode(),
+        "blanks.fa": "".join(f">r{i} x\n{s[:150]}  \n\t{s[150:]} \t\n"
+                             for i, s in enumerate(seqs)).encode(),
+        "crlf.fq": "".join(f"@r{i} c\r\n{s}\r\n+\r\n{q}\r\n"
+                           for i, (s, q) in enumerate(zip(seqs, quals))).encode(),
+        "blank_lines.fq": "\n".join(f"@r{i} c\n{s}\n+\n{q}\n"
+                                    for i, (s, q) in enumerate(zip(seqs, quals))).encode(),
+        "multiline.fq": "".join(f"@r{i}\n{s[:120]}\n{s[120:]}\n+\n{q}\n"
+                                for i, (s, q) in enumerate(zip(seqs, quals))).encode(),
+        "non_ascii.fa": (f">r0 café\n{seqs[0][:50]}".encode()
+                         + "é".encode() + f"{seqs[0][50:]}\n>r1\n{seqs[1]}\n".encode()),
+    }
+
+
+#: phase (d)'s long reads, and the chunks of each run held against the scalar model
+LONG_READS, LONG_READ_LEN, LONG_SAMPLE = 2_000, 10_000, 1_000
+
+#: the edge files that :func:`edge_file_runs` sketches and fingerprints
+EDGE_CLI_FILES = ("crlf_comments.fa", "crlf_plain.fa", "blanks.fa", "crlf.fq", "blank_lines.fq")
+
+
+def edge_file_runs(main, work: Path, sketch_extra: list, fingerprint_extra: list) -> dict:
+    """Output bytes of ``sketch``, ``sketch -i``, ``sketch -r`` (the
+    ``.msh``) and ``fingerprint`` (its two ``.txt`` files) of each file of
+    :data:`EDGE_CLI_FILES` through the CLI entry point ``main``, keyed
+    ``"<command>:<file>"``.  ``work`` is emptied first; ``sketch_extra`` and
+    ``fingerprint_extra`` are appended to those verbs' arguments."""
+    import io
+    import shutil
+
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    files = edge_files()
+    out = {}
+    for name in EDGE_CLI_FILES:
+        d = work / name.replace(".", "_")
+        d.mkdir()
+        (d / name).write_bytes(files[name])
+        for tag, flags in (("sketch", []), ("sketch -i", ["-i"]), ("sketch -r", ["-r"])):
+            o = tag.replace(" ", "").replace("-", "_")
+            # a sequence file's reference is named by its path as given: relative here
+            with contextlib.chdir(d), contextlib.redirect_stderr(io.StringIO()):
+                rc = main(["sketch", *flags, name, "-o", o, *sketch_extra])
+            if rc != 0:
+                raise AssertionError(f"{tag} {name}: exit code {rc}")
+            out[f"{tag}:{name}"] = (d / f"{o}.msh").read_bytes()
+        with contextlib.redirect_stderr(io.StringIO()):
+            rc = main(["fingerprint", "--path", str(d), "--fasta", name, *fingerprint_extra])
+        if rc != 0:
+            raise AssertionError(f"fingerprint {name}: exit code {rc}")
+        out[f"fingerprint:{name}"] = (d / "fingerprint_CFL.txt").read_bytes()
+        out[f"fingerprint fact:{name}"] = (d / "fact_fingerprint_CFL.txt").read_bytes()
+    return out
+
+
+#: sha256 of each output of :func:`edge_file_runs` through ``python -m
+#: fpmash_tpu`` on the CPU (``fingerprint`` with ``--backend scalar``; held
+#: against that CLI by tests/test_torch_native_io.py)
+EDGE_SHA256 = {
+    "sketch:crlf_comments.fa": "66695b086e0077980dec0edbb74636e5880deb441bb7ddc8f0c5e5a71b80e272",
+    "sketch -i:crlf_comments.fa": "c6f389c4135ebc5ba67030c7166c975d4e606e1d97dcb29a009651f8ae505354",
+    "sketch -r:crlf_comments.fa": "343c36c32f8aa719ee2958b0f053a9c31f1b836e57e7dff28ba33785ebe0f14e",
+    "fingerprint:crlf_comments.fa": "916627abb03eaec0ce70846ed6f50281419bb22f3f52026a96a98819c0513d85",
+    "fingerprint fact:crlf_comments.fa": "0da30342a89446975c2d296bdb9c51a288400de8dd29a86be3d1f93d4afa2371",
+    "sketch:crlf_plain.fa": "de143dc724291e4779a22d1d267244e31c4fd1d0ad14e255143a16d4f5466dc3",
+    "sketch -i:crlf_plain.fa": "9375f13fb3980fd49c0861a961aff771d07e4d884498377e83fc2b529991ecd2",
+    "sketch -r:crlf_plain.fa": "87899251a7f7f80ce525b12d3e6c6f2c921a3c5dfc9ffacf2311a9f6796e1bdb",
+    "fingerprint:crlf_plain.fa": "d3d0d2fe314c1ddf5a0ff8e7c4c434cd301c9458712638a25d8e550f5c5dc7cd",
+    "fingerprint fact:crlf_plain.fa": "0aaf8febd60ffe0dbc183c18563219df909430a0d342fcd414f78d2dcce368ba",
+    "sketch:blanks.fa": "61042702508bdf86ade7a7c462cc8900588092da12d4b81a79020062bc242cae",
+    "sketch -i:blanks.fa": "eece94f4ee3ae3449dd515b2dbe56c0ad7cdabdff4b15758e870f89178df1794",
+    "sketch -r:blanks.fa": "57a0a20d25f04a7e60ad696be84e26a345d83f297eace5eadcbaa761dfa5e953",
+    "fingerprint:blanks.fa": "983b1c8244e7288e911dc820a6d2828fed8db48a3b2b2d054b3caaff983b8cab",
+    "fingerprint fact:blanks.fa": "ab1977de2a398cca890f1d5cf6a1639fc2666c918eb1f9a8f0ce7545b8cacd74",
+    "sketch:crlf.fq": "52aa994e5199dad8b5e5e00399aa45e1e460c16166e45ebd833de1fee464b934",
+    "sketch -i:crlf.fq": "50b3ff8ac01de1a749024468ffc373556fec4026da85078ec909ad98f5da12ff",
+    "sketch -r:crlf.fq": "0871f861a6c536c341ebaf74c5ff2a34f985bc72822fa09e81de7a7d9e2ef783",
+    "fingerprint:crlf.fq": "a278cef682d655257177e9f93d5842e274437eaa2704996240d010919259ba9d",
+    "fingerprint fact:crlf.fq": "0fb2710ebb5bdc475b791d624a166ebf7600944ab284250082070d72d36a9236",
+    "sketch:blank_lines.fq": "c55dfcd6817aa82be5daad06008505c91ff71c7b9c1c7358a458296f35f1a580",
+    "sketch -i:blank_lines.fq": "fdefa0c86768fcc6dc6cc44fa30e5bdf73c5184487726e8a53e760ff7b7502ee",
+    "sketch -r:blank_lines.fq": "dabe8ca367c0cb21f5d71c8a5d672babacc8b1037d7b137cf24d2d0eec5bdc79",
+    "fingerprint:blank_lines.fq": "a70fb88077e86f0a65faf885b646f6f851e68e3cafa773707ff1b850b33acba8",
+    "fingerprint fact:blank_lines.fq": "2ccabb0fb3178c48a34842a19dfc370f922f41c6e244e9afeaec7163e2531b50",
+}
+
+_PARSE = """
+import hashlib, json, os, sys, threading, time
+sys.path.insert(0, {root!r})
+from fpmash_tpu_torch.utils.fasta import read_sequences
+if {native!r}:
+    from fpmash_tpu_torch.utils import native
+    native._lib()  # the import and the library's load are not the parse's
+
+def rss_gib():
+    with open("/proc/self/statm") as fh:
+        return int(fh.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 2**30
+
+peak, done = [rss_gib()], threading.Event()
+
+def sample():  # the C++ parse releases the GIL, so this samples it too
+    while not done.wait(0.01):
+        peak[0] = max(peak[0], rss_gib())
+
+before = peak[0]
+sampler = threading.Thread(target=sample)
+sampler.start()
+t0 = time.perf_counter()
+records = list(read_sequences({path!r}, native={native!r}))
+wall = time.perf_counter() - t0
+done.set()
+sampler.join()
+digest = hashlib.sha256()
+for r in records:
+    digest.update("\\0".join(r).encode() + b"\\n")
+print(json.dumps({{"wall": wall, "records": len(records), "sha256": digest.hexdigest(),
+                  "rss_before_gib": before, "peak_rss_gib": max(peak[0], rss_gib())}}))
+"""
+
+
+def _parse_runs(path: Path) -> dict:
+    """``read_sequences`` of ``path`` by the native reader and by the Python
+    one (``native=False``), each in a process of its own (its wall, its peak
+    resident memory before and after the parse, and a digest of every
+    record's name, comment and sequence); raises unless the two readers give
+    the same records."""
+    import subprocess
+
+    runs = {}
+    for tag, native in (("native", True), ("python", False)):
+        proc = subprocess.run([sys.executable, "-c", _PARSE.format(root=str(ROOT), path=str(path),
+                                                                   native=native)],
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"{path.name}: the {tag} reader's process failed "
+                                 f"(exit {proc.returncode}):\n{proc.stderr}")
+        runs[tag] = json.loads(proc.stdout.strip().splitlines()[-1])
+    if runs["native"]["sha256"] != runs["python"]["sha256"]:
+        raise AssertionError(f"{path.name}: the native and Python readers give other records")
+    return runs
+
+
+def _parse_line(what: str, runs: dict) -> str:
+    n, p = runs["native"], runs["python"]
+    return (f"{what}: {n['records']} records parsed in {n['wall']:.3f} s native, "
+            f"{p['wall']:.3f} s Python ({p['wall'] / n['wall']:.2f}x), the same records; peak "
+            f"RSS {n['peak_rss_gib']:.3f} GiB native, {p['peak_rss_gib']:.3f} GiB Python "
+            f"({n['rss_before_gib']:.3f} and {p['rss_before_gib']:.3f} GiB before the parse)")
+
+
+def _fingerprint_rows(path: Path) -> list[list[list[int]]]:
+    """Each line of a generalized fingerprint file: its chunks' lengths."""
+    rows = []
+    for line in path.read_text().splitlines():
+        segments = line.split("  ", 1)[1].split(" | ")[:-1]
+        rows.append([[int(x) for x in seg.split()] for seg in segments])
+    return rows
+
+
+def phase_native_host(dev, rng, work: Path, smi: str) -> dict:
+    """The native host helpers (``fpmash_tpu_torch/native/``, built with
+    g++ at first use) on the paths that run them, with the counts set to 0
+    just before each CLI run and read just after:
+
+    (a) BASELINE config 5's FASTQ (``phase_multi_device``'s 1 000 000 reads
+        of 150 bases) parsed by both readers (same records; walls, peak
+        resident memory), then ``sketch -r -m 2 reads.fq`` through the CLI
+        on the card (K5), whose ``.msh`` must equal the one that phase built
+        from the parsed records;
+    (b) the classic workflow's 50 Mbase read set parsed by both readers;
+    (c) the edge files (:func:`edge_files`) sketched and fingerprinted
+        through the CLI on the card: every output must equal the JAX CLI's
+        (:data:`EDGE_SHA256`);
+    (d) ``fingerprint --type generalized --type_factorization ICFL_COMB``
+        of 2 000 reads of 10 000 bases at ``--split 2000`` (every chunk
+        wider than the card's ICFL bound, so factorized on the host by
+        ``native/lyndon.cpp``) and at the default ``--split 300`` (K3), a
+        sample of 1 000 chunks of each held against the scalar model.
+    Returns the launches of the CLI runs."""
+    import hashlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from fpmash_tpu_torch.cli import main
+    from fpmash_tpu_torch.models import fingerprint
+    from fpmash_tpu_torch.ops.icfl_cuda import MAX_ICFL_WIDTH
+    from fpmash_tpu_torch.utils import trace as trace_mod
+
+    t_phase = time.perf_counter()
+    launches = {}
+
+    def cli(argv):
+        """``main(argv)`` with the stage spans captured; its wall, launches,
+        host rows and spans."""
+        err = io.StringIO()
+        trace_mod._ENABLED = True
+        _reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(err), contextlib.redirect_stdout(io.StringIO()):
+            rc = main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        trace_mod._ENABLED = False
+        if rc != 0:
+            raise AssertionError(f"{' '.join(argv)}: exit code {rc}\n{err.getvalue()}")
+        spans = [line[len("[fpmash] "):] for line in err.getvalue().splitlines()
+                 if line.startswith("[fpmash] ")]
+        return wall, _launches(), dict(fingerprint.SCALAR_ROWS), spans
+
+    # (a) config 5
+    reads = work / "config5" / "reads.fq"
+    print(_parse_line(f"native host: (a) config 5 {reads.name}", _parse_runs(reads)) + f"; {smi}")
+    out = work / "native_host"
+    out.mkdir(parents=True, exist_ok=True)
+    wall, got, _, spans = cli(["sketch", "-r", "-m", "2", str(reads), "-o", str(out / "config5"),
+                               "--device", "cuda"])
+    if got["kmer:topk8"] < 1:
+        raise AssertionError(f"config 5 sketch -r -m 2 did not launch K5: {got}")
+    if not any("read-sequences" in s and "reader=native" in s for s in spans):
+        raise AssertionError(f"config 5 sketch -r -m 2 did not read with the native reader: "
+                             f"{spans}")
+    if (out / "config5.msh").read_bytes() != (work / "config5" / "reads_m2_1.msh").read_bytes():
+        raise AssertionError("config 5: the CLI's .msh differs from the one built from the "
+                             "parsed records")
+    launches["config5"] = got
+    print(f"native host: (a) config 5 sketch -r -m 2 reads.fq through the CLI on the card: "
+          f"{wall:.3f} s wall, K5 launches {got['kmer:topk8']}, .msh equal to the one built "
+          f"from the parsed records; spans: {'; '.join(spans)}; {smi}")
+
+    # (b) the classic workflow's read set
+    print(_parse_line("native host: (b) the classic read set reads.fq",
+                      _parse_runs(work / "classic" / "reads.fq")) + f"; {smi}")
+
+    # (c) the edge files on the card
+    _reset_counts()
+    outputs = edge_file_runs(main, out / "edge", ["--device", "cuda"], ["--device", "cuda"])
+    got = {k: n for k, n in _launches().items() if n}
+    digests = {k: hashlib.sha256(v).hexdigest() for k, v in outputs.items()}
+    differ = sorted(k for k in digests.keys() | EDGE_SHA256.keys()
+                    if digests.get(k) != EDGE_SHA256.get(k))
+    if differ:
+        raise AssertionError(f"edge files: outputs differ from the JAX CLI's in {differ}")
+    launches["edge"] = got
+    print(f"native host: (c) {len(outputs)} outputs of sketch, sketch -i, sketch -r and "
+          f"fingerprint of {len(EDGE_CLI_FILES)} edge files (CRLF, blanks, blank FASTQ lines) on "
+          f"the card equal the JAX CLI's; launches {got}")
+
+    # (d) the host factorizer at 20 Mbases
+    long_dir = out / "long"
+    long_dir.mkdir(parents=True, exist_ok=True)
+    lut = np.frombuffer(b"ACGT", np.uint8)
+    seqs = lut[rng.integers(0, 4, size=(LONG_READS, LONG_READ_LEN))]
+    fasta = long_dir / "long.fa"
+    with open(fasta, "wb") as fh:
+        for i, row in enumerate(seqs):
+            fh.write(b">L%d long\n" % i)
+            fh.write(b"\n".join(row[p : p + 70].tobytes() for p in range(0, LONG_READ_LEN, 70))
+                     + b"\n")
+    seqs = [row.tobytes().decode() for row in seqs]
+    for split in (2000, 300):
+        d = long_dir / f"split{split}"
+        d.mkdir(exist_ok=True)
+        wall, got, host_rows, spans = cli(
+            ["fingerprint", "--type", "generalized", "--type_factorization", "ICFL_COMB",
+             "--split", str(split), "--fasta", str(fasta), "--path", str(d), "--device", "cuda"])
+        widths = [min(split, LONG_READ_LEN - p) for p in range(0, LONG_READ_LEN, split)]
+        n_chunks = LONG_READS * len(widths)
+        wide = LONG_READS * sum(w > MAX_ICFL_WIDTH for w in widths)
+        if host_rows != {"wide": wide, "ok_false": 0}:
+            raise AssertionError(f"--split {split}: {host_rows} rows on the host, not {wide} wide")
+        if wide and not any("scalar-rows:wide" in s and "host=native" in s for s in spans):
+            raise AssertionError(f"--split {split}: no native host span: {spans}")
+        if wide < n_chunks and got["factor_words:icfl"] < 1:
+            raise AssertionError(f"--split {split}: K3 not launched: {got}")
+        rows = _fingerprint_rows(d / "fingerprint_ICFL_COMB.txt")
+        if len(rows) != LONG_READS or any(len(r) != len(widths) for r in rows):
+            raise AssertionError(f"--split {split}: {len(rows)} lines, not {LONG_READS}")
+        t0 = time.perf_counter()
+        picks = rng.choice(n_chunks, LONG_SAMPLE, replace=False)
+        for pick in picks:
+            r, c = divmod(int(pick), len(widths))
+            want = fingerprint.scalar_lengths(seqs[r][c * split : (c + 1) * split], "ICFL_COMB")
+            if rows[r][c] != want:
+                raise AssertionError(f"--split {split}: read {r} chunk {c} differs from the "
+                                     "scalar model")
+        launches[f"long split {split}"] = got
+        print(f"native host: (d) fingerprint --type generalized ICFL_COMB --split {split} of "
+              f"{LONG_READS} reads x {LONG_READ_LEN} bases ({n_chunks} chunks): {wall:.3f} s wall; "
+              f"rows on the host {host_rows}; launches {({k: n for k, n in got.items() if n})}; "
+              f"{LONG_SAMPLE} chunks "
+              f"equal the scalar model ({time.perf_counter() - t0:.1f} s); spans: "
+              f"{'; '.join(spans)}; {smi}")
+    print(f"native host: the phase took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2733,6 +3059,7 @@ def main() -> int:
     k7["windowed_launches"] = windowed_launches["kmer:planes_k32"]
     k8["windowed_launches"] = windowed_launches["kmer:planes_k16"]
     phase_host_verbs(work)
+    phase_native_host(dev, rng, work, smi)
 
     src = "fpmash_tpu_torch/csrc/"
     kernels = [

@@ -4,7 +4,10 @@ A port of :mod:`fpmash_tpu` (JAX on a TPU) to PyTorch on an NVIDIA H100.
 Host glue (CLI, FASTA and ``.msh`` IO, statistics) is plain Python and
 numpy; batched compute is PyTorch on an explicit ``device``; every Pallas
 kernel of the JAX package becomes a CUDA C++ kernel written for Hopper
-(``csrc/``), built with ``nvcc`` at first use (``ops/_build.py``).
+(``csrc/``), built with ``nvcc`` at first use (``ops/_build.py``).  The
+host helpers of ``native/`` (the FASTA/FASTQ and fingerprint-file readers,
+the host factorizer; copies of the JAX package's C++) are built with ``g++``
+at first use the same way.
 
 The package imports ``torch``, ``numpy`` and the standard library, never
 ``jax`` or :mod:`fpmash_tpu` (whose ``__init__`` imports JAX), so it runs

@@ -12,11 +12,15 @@ Factorization runs on the given device: the windows go to the card as one
 flat byte stream plus a start and length per window, kernel
 ``factor_words`` (``ops/icfl_cuda.py``) returns each window's factor-start
 bits, and the host turns bits into lengths and slices the factor strings.
-Two kinds of row go to the scalar model (``scalar/lyndon.py``) instead, both
-chosen as the JAX package chooses them: rows wider than
-:data:`~fpmash_tpu_torch.ops.icfl_cuda.MAX_ICFL_WIDTH` for the families with
-an ICFL automaton (picked by shape, before any launch), and rows whose
-``ok`` flag comes back false.  :data:`SCALAR_ROWS` counts both.
+Two kinds of row go to the host factorizer instead
+(:mod:`fpmash_tpu_torch.utils.native_lyndon`, ``native/lyndon.cpp``, which
+gives the scalar model's lengths), both chosen as the JAX package chooses
+them: rows wider than :data:`~fpmash_tpu_torch.ops.icfl_cuda.MAX_ICFL_WIDTH`
+for the families with an ICFL automaton (picked by shape, before any
+launch), and rows whose ``ok`` flag comes back false.  :data:`SCALAR_ROWS`
+counts both.  (The JAX package's rule that batches under 64 windows stay on
+the host is a dispatch workaround of the TPU and is not copied: such batches
+go to the card.)
 
 Output lines are byte-compatible with the reference: ``ID len1 len2 ...``
 and ``ID fac1 fac2 ...``, ``<<``/``>>`` markers stripped
@@ -35,12 +39,13 @@ from fpmash_tpu_torch.ops.factorize import plan
 from fpmash_tpu_torch.ops.icfl_cuda import MAX_ICFL_WIDTH, factor_words
 from fpmash_tpu_torch.scalar.lyndon import FACTORIZATIONS, reverse_complement
 from fpmash_tpu_torch.utils.fasta import read_sequences
+from fpmash_tpu_torch.utils.native_lyndon import factorize_flat
 from fpmash_tpu_torch.utils.trace import trace
 
 SHIFT_WINDOW = 100  # fingerprint_utils.py:456: shift_string(read, 100, shift)
 MARKERS = ("<<", ">>")
 
-#: rows this process sent to the scalar model: too wide for the card's ICFL
+#: rows this process factorized on the host: too wide for the card's ICFL
 #: instances, or reported with ``ok`` false
 SCALAR_ROWS = {"wide": 0, "ok_false": 0}
 
@@ -155,22 +160,25 @@ def device_rows(lengths: np.ndarray, factorization: str) -> np.ndarray:
 
 def scalar_rows(flat: np.ndarray, starts: np.ndarray, lengths: np.ndarray, rows,
                 factorization: str, reason: str) -> dict[int, list[int]]:
-    """Factor lengths of ``rows`` by the scalar model, in a span of their own."""
-    rows = [int(b) for b in rows]
+    """Factor lengths of ``rows`` by the host factorizer
+    (:func:`~fpmash_tpu_torch.utils.native_lyndon.factorize_flat`, equal to
+    :func:`scalar_lengths`), in a span of their own."""
+    rows = np.asarray(rows, np.int64)
     SCALAR_ROWS[reason] += len(rows)
-    with trace(f"scalar-rows:{reason}", rows=len(rows)):
-        return {
-            b: scalar_lengths(flat[starts[b] : starts[b] + lengths[b]].tobytes().decode("latin-1"),
-                              factorization)
-            for b in rows
-        }
+    if not len(rows):
+        return {}
+    with trace(f"scalar-rows:{reason}", rows=len(rows), host="native"):
+        lens, offsets = factorize_flat(flat, starts[rows], lengths[rows], factorization)
+        offsets = offsets.tolist()
+        return {b: lens[offsets[i] : offsets[i + 1]].tolist()
+                for i, b in enumerate(rows.tolist())}
 
 
 def family_words(flat: np.ndarray, starts: np.ndarray, lengths: np.ndarray,
                  factorization: str, device):
     """Factor-start words of the windows ``flat[starts[b] : starts[b] +
     lengths[b]]``: kernel ``factor_words`` on ``device`` for the rows
-    :func:`device_rows` picks, the scalar model for the others and for rows
+    :func:`device_rows` picks, the host factorizer for the others and for rows
     whose ``ok`` comes back false.
 
     Returns ``(idx, words, dev_lengths, scalar)``: the card's rows ``idx``,

@@ -10,6 +10,11 @@ processes.  Nothing is built or loaded when this module is imported.
 Each C entry point returns the ``cudaGetLastError()`` after its launch;
 :func:`check` raises on a nonzero code, because a refused launch never runs
 and a later synchronise would not report it.
+
+:func:`host_library` builds the host helpers of ``native/*.cpp`` (the
+FASTA/FASTQ and fingerprint-file readers, the host factorizer) the same way
+with ``g++`` (or ``$CXX``): one ``build/lib<name>_<digest>.so`` a source,
+built at first use, no card or ``nvcc`` needed.
 """
 
 from __future__ import annotations
@@ -18,12 +23,16 @@ import ctypes
 import functools
 import hashlib
 import os
+import shlex
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
+HOST_SRC = _PKG / "native"
+HOST_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
 BUILD_DIR = _PKG.parent / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -120,6 +129,40 @@ def library() -> ctypes.CDLL:
     lib.fpmash_error_string.argtypes = [ctypes.c_int]
     lib.fpmash_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _cxx() -> list[str]:
+    return shlex.split(os.environ.get("CXX") or "g++")
+
+
+def host_library_path(name: str) -> Path:
+    """Where :func:`host_library` puts ``native/<name>.cpp``'s build: the
+    name carries a digest of the source, the compiler and the flags."""
+    digest = hashlib.sha256(" ".join([*_cxx(), *HOST_FLAGS]).encode())
+    digest.update((HOST_SRC / f"{name}.cpp").read_bytes())
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
+
+
+@functools.lru_cache(maxsize=None)
+def host_library(name: str) -> ctypes.CDLL:
+    """``native/<name>.cpp`` compiled with ``g++`` (or ``$CXX``) into
+    ``build/`` unless this exact build exists, then loaded.  A failed build
+    raises with the compiler's standard error; nothing falls back."""
+    out = host_library_path(name)
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = BUILD_DIR / f"{out.stem}.{os.getpid()}.{threading.get_ident()}.so.tmp"
+        cmd = [*_cxx(), *HOST_FLAGS, "-o", str(tmp), str(HOST_SRC / f"{name}.cpp")]
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+        except OSError as exc:  # no such compiler
+            raise RuntimeError(f"host build failed: {' '.join(cmd)}: {exc}") from exc
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"host build failed (exit {proc.returncode}): "
+                               f"{' '.join(cmd)}\n{proc.stderr}")
+        os.replace(tmp, out)  # atomic: concurrent builds never see half a file
+    return ctypes.CDLL(str(out))
 
 
 def check(code: int, what: str) -> None:

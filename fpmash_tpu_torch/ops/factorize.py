@@ -100,7 +100,7 @@ def factor_boundary_mask(batch: torch.Tensor, lengths: torch.Tensor, family: str
     """Factor-start mask of any family: ``(mask bool[B, L], ok bool[B])``.
 
     ``ok`` is true for every row here; the kernel's ``ok`` has the same
-    meaning (false: recompute the row with the scalar model).
+    meaning (false: recompute the row on the host).
     """
     base, threshold, comb = plan(family)
     n = lengths.to(device=batch.device, dtype=torch.int64)

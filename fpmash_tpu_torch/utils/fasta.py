@@ -1,8 +1,12 @@
 """FASTA / FASTQ / gzip sequence reader (copy of :mod:`fpmash_tpu.utils.fasta`).
 
-The pure-Python streaming parser only; the JAX package's native C++ batch
-reader (``native/``) is asserted equivalent to it there and is not ported
-yet.  Records are ``(name, comment, sequence)`` tuples.  The writers of
+Every plain file goes through the native C++ batch reader
+(:mod:`fpmash_tpu_torch.utils.native`, built from ``native/fpio.cpp``), as
+in the JAX package, whose CLI reads plain files with it; ``.gz`` files and
+``-`` (stdin) through the pure-Python streaming parser.  The two differ on
+CRLF line ends, blanks inside sequence lines and some malformed FASTQ, so a
+plain file never takes the Python parser (``native=False`` asks for it).
+Records are ``(name, comment, sequence)`` tuples.  The writers of
 ``generate`` (:func:`write_fasta`, :func:`write_fastq`) are copied too.
 """
 
@@ -10,6 +14,7 @@ from __future__ import annotations
 
 import gzip
 import io
+from itertools import repeat
 from typing import Iterable, Iterator, NamedTuple
 
 
@@ -29,13 +34,33 @@ def _open_text(path: str):
     return open(path)
 
 
-def read_sequences(path: str) -> Iterator[SeqRecord]:
+def reader(path: str, native: bool = True) -> str:
+    """Which parser :func:`read_sequences` reads ``path`` with:
+    ``"native"`` or ``"python"``."""
+    return "python" if not native or path == "-" or path.endswith(".gz") else "native"
+
+
+def read_sequences(path: str, native: bool = True) -> Iterator[SeqRecord]:
     """Stream records from a FASTA or FASTQ file (optionally .gz).
 
     FASTA: ``>name comment`` header, multi-line sequence.
     FASTQ: 4-line records ``@name comment / seq / + / qual``.
     Format is sniffed from the first non-empty character, like kseq.
+
+    A plain file goes through the native parser (see the module's
+    docstring); a failed build of it raises.
     """
+    if reader(path, native) == "native":
+        from fpmash_tpu_torch.utils.native import parse_seq_file
+
+        names, comments, blob, offsets = parse_seq_file(path)
+        text = blob.decode("ascii", "replace")
+        offsets = offsets.tolist()
+        seqs = map(text.__getitem__, map(slice, offsets[:-1], offsets[1:]))
+        # one record a read, built without a Python-level call per record
+        yield from map(tuple.__new__, repeat(SeqRecord), zip(names, comments, seqs))
+        return
+
     with _open_text(path) as fh:
         first = fh.read(1)
         while first in ("\n", "\r", " "):
