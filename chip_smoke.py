@@ -43,7 +43,10 @@ against K5's survivors, and K15 (``row_sort_planes``) on K6's masked planes
 against ``torch.sort``.  So all fifteen kernels are held against their plain
 versions; the k-mer kernels (K5-K8, K10-K12) also on a tile-edge set
 (lengths on and one off the kernels' tiles, invalid codes on the tile
-edges, a misaligned view).  Every phase passes or raises; nothing is caught.
+edges, a misaligned view).  The minmer kernel (``csrc/winnow.cu``, which
+replaces the JAX package's XLA jit of the selection) runs in ``sketch -W``
+and ``find`` and is held against its plain version over the whole 5 Mbase
+chromosome.  Every phase passes or raises; nothing is caught.
 
 The last three lines of standard output are the kernels' JSON record
 (launch counts from the main paths, for the Duval base of
@@ -55,7 +58,9 @@ with its 10^8-pair time and bound (``all_pairs_ms``, ``all_pairs_bound_ms``)
 and its random lists (``random_lists``) beside it; each kernel's bound, the
 least time the card could take for its work, from its bytes and integer
 operations at that shape; for K15 the time of ``torch.sort`` and
-``gather``; for K1-K4, K13 and K14 the time of their C entry point alone
+``gather``; for the minmer kernel its times on one chunk of 1 677 starts
+and on 1 000 000 positions of 3 values (``chunk``, ``worst``); for K1-K4,
+K13 and K14 the time of their C entry point alone
 (``launch_ms``) beside the wrapper's, K13's under dna16 beside byte4
 (``dna16_ms``, ``dna16_launch_ms``),
 and their times at the generalized mode's 300-character chunks, at the
@@ -477,9 +482,11 @@ def _reset_counts():
         kmers_cuda,
         sort_cuda,
         walk_cuda,
+        winnow,
     )
 
     fused_cuda.LAUNCHES = 0
+    winnow.LAUNCHES = 0
     fused_cuda.INLINE_LAUNCHES = 0
     walk_cuda.LAUNCHES = 0
     compare_cuda.LAUNCHES = 0
@@ -497,11 +504,12 @@ def _launches() -> dict:
         kmers_cuda,
         sort_cuda,
         walk_cuda,
+        winnow,
     )
 
     out = {"fingerprint": fused_cuda.LAUNCHES, "fingerprint_inline": fused_cuda.INLINE_LAUNCHES,
            "walk": walk_cuda.LAUNCHES, "compare": compare_cuda.LAUNCHES,
-           "row_sort": sort_cuda.LAUNCHES}
+           "row_sort": sort_cuda.LAUNCHES, "winnow": winnow.LAUNCHES}
     for key, n in icfl_cuda.LAUNCHES.items():
         out["hash_words" if key == "hash_words" else f"factor_words:{key}"] = n
     for key, n in kmers_cuda.LAUNCHES.items():
@@ -2333,14 +2341,16 @@ def _fasta_record(name: str, text) -> bytes:
             + b"".join(text[i : i + 80].tobytes() + b"\n" for i in range(0, len(text), 80)))
 
 
-def _minmer_bound(c: int, ws: int) -> dict:
-    """The minmer op's bound on one chunk of ``c`` window starts: the hash
-    and previous-occurrence windows ``[c, ws]`` (8 bytes each) read once, and
-    a comparison sort's ``ws log2 ws`` compares a row, each two 32-bit
-    operations (64-bit keys)."""
-    import math
+def _minmer_bound(n: int) -> dict:
+    """The minmer selection's bound over ``n`` positions, whatever computes
+    it: the hashes and their previous occurrences read once (16 bytes a
+    position) and the marks written once (1 byte)."""
+    return _bound(17 * n, 0)
 
-    return _bound(2 * 8 * c * ws, 2 * c * ws * math.ceil(math.log2(ws)))
+
+#: the windowed phase's worst case for the minmer kernel: 1 000 000
+#: positions of 3 distinct hashes at find's window and mins
+WORST_LEN, WORST_VALUES = 1_000_000, 3
 
 
 def phase_windowed_find(dev, rng, work: Path):
@@ -2355,10 +2365,15 @@ def phase_windowed_find(dev, rng, work: Path):
     planted interval on its strand, and no random read is; the plasmid's
     position hashes on the card equal the scalar MurmurHash3 of its raw
     bytes and its loci the scalar minmer model over them (at k = 16 the
-    plain ``murmur3_bytes_batch``'s 32-bit hashes); and on one full chunk of
-    16 Mi window elements the minmer op on the card equals its CPU run.
-    Returns the launches and the op's record, with the time of its row sort
-    alone (``sort_ms``)."""
+    plain ``murmur3_bytes_batch``'s 32-bit hashes).  The CLI runs must have
+    launched the minmer kernel (``csrc/winnow.cu``).  Then the kernel is held
+    byte for byte against its plain version on the card over the whole
+    chromosome (``minmer_marks_plain``, timed once on the host clock) and
+    over WORST_LEN positions of WORST_VALUES hashes, and on one chunk of
+    1 677 starts (16 Mi window elements, the plain version's chunk on the
+    card) ``minmer_positions`` on the card equals its CPU run; each is
+    timed warm with CUDA events.  Returns the launches and the kernel's
+    record."""
     import io
 
     import numpy as np
@@ -2370,6 +2385,8 @@ def phase_windowed_find(dev, rng, work: Path):
     from fpmash_tpu_torch.ops.winnow import (
         CHUNK_ELEMS,
         chunk_marks,
+        minmer_marks,
+        minmer_marks_plain,
         minmer_positions,
         prev_occurrence,
     )
@@ -2433,6 +2450,8 @@ def phase_windowed_find(dev, rng, work: Path):
     peak = torch.cuda.max_memory_allocated(dev)
     if launches["kmer:planes_k32"] < 1 or launches["kmer:planes_k16"] < 1:
         raise AssertionError(f"the windowed path did not launch K7 and K8: {launches}")
+    if launches["winnow"] < 1:
+        raise AssertionError(f"the windowed path did not launch the minmer kernel: {launches}")
 
     t0 = time.perf_counter()
     found = printed["find ref.msw q.fa"]
@@ -2474,24 +2493,54 @@ def phase_windowed_find(dev, rng, work: Path):
         raise AssertionError("sketch -W -k 16: the plasmid's loci differ from the scalar model")
     checks = time.perf_counter() - t0
 
-    ws = FIND_WINDOW
-    c = CHUNK_ELEMS["cuda"] // ws
-    n = c + ws - 1
-    h = _position_hashes(lut[chrom[: n + FIND_K - 1]].tobytes(), p, dev)
+    ws, mins = FIND_WINDOW, FIND_MINS
+    hc = _position_hashes(lut[chrom].tobytes(), p, dev)
+    prev = prev_occurrence(hc)
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    on_cpu = minmer_positions(h, ws, FIND_MINS, device="cpu")
+    plain = minmer_marks_plain(hc, prev, ws, mins)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    marks = minmer_marks(hc, prev, ws, mins)
+    if not torch.equal(marks, plain.to(torch.uint8)):
+        raise AssertionError("the minmer kernel differs from its plain version on the chromosome")
+    record = {"positions": hc.numel(), "window": ws, "mins": mins,
+              "minmers": int(marks.sum()), "max_abs_err": _max_abs_err([(marks, plain)]),
+              "ms": _time_ms(lambda: minmer_marks(hc, prev, ws, mins), 5), "plain_ms": plain_ms,
+              **_minmer_bound(hc.numel())}
+    del plain
+
+    c = CHUNK_ELEMS["cuda"] // ws
+    m = c + ws - 1
+    t0 = time.perf_counter()
+    on_cpu = minmer_positions(hc[:m], ws, mins, device="cpu")
     cpu_s = time.perf_counter() - t0
-    on_card = minmer_positions(h, ws, FIND_MINS, device=dev)
+    on_card = minmer_positions(hc[:m], ws, mins, device=dev)
     if not all(np.array_equal(a, b) for a, b in zip(on_card, on_cpu)):
         raise AssertionError("minmer_positions on the card differs from its CPU run")
-    keys, prev = h ^ (-(1 << 63)), prev_occurrence(h)
-    ms = _time_ms(lambda: chunk_marks(keys, prev, 0, c, ws, FIND_MINS), 5)
-    sort_ms = _time_ms(lambda: torch.sort(keys.unfold(0, ws, 1)[:c], dim=1), 5)
-    record = {"name": "minmer_positions", "route": "torch",
-              "source": "fpmash_tpu_torch/ops/winnow.py",
-              "replaces": "fpmash_tpu/ops/winnow.py:105", "chunk": [c, ws], "mins": FIND_MINS,
-              "ms": ms, "sort_ms": sort_ms, "cpu_s": cpu_s, "minmers": int(len(on_card[0])),
-              **_minmer_bound(c, ws)}
+    keys = hc[:m] ^ (-(1 << 63))
+    record["chunk"] = {"starts": c, "ms": _time_ms(lambda: minmer_marks(hc[:m], prev[:m], ws,
+                                                                      mins), 20),
+                       "plain_ms": _time_ms(lambda: chunk_marks(keys, prev[:m], 0, c, ws, mins),
+                                            5),
+                       "bound_ms": _minmer_bound(m)["bound_ms"], "cpu_s": cpu_s}
+
+    own = np.random.default_rng(2028)  # the later phases keep their inputs
+    values = own.integers(0, 1 << 63, size=WORST_VALUES, dtype=np.uint64)
+    hw = torch.from_numpy(values[own.integers(0, WORST_VALUES, size=WORST_LEN)]
+                          .view(np.int64)).to(dev)
+    pw = prev_occurrence(hw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = minmer_marks_plain(hw, pw, ws, mins)
+    torch.cuda.synchronize()
+    worst_plain_ms = (time.perf_counter() - t0) * 1e3
+    if not torch.equal(minmer_marks(hw, pw, ws, mins), plain.to(torch.uint8)):
+        raise AssertionError(f"the minmer kernel differs from its plain version on "
+                             f"{WORST_VALUES} values")
+    record["worst"] = {"positions": WORST_LEN, "values": WORST_VALUES,
+                       "ms": _time_ms(lambda: minmer_marks(hw, pw, ws, mins), 5),
+                       "plain_ms": worst_plain_ms, "bound_ms": _minmer_bound(WORST_LEN)["bound_ms"]}
 
     for name in commands:
         print(f"windowed: {name}: {walls[name]:.3f} s wall; spans: " + "; ".join(spans[name]))
@@ -2500,8 +2549,11 @@ def phase_windowed_find(dev, rng, work: Path):
           f"{max(scores):g}), no random read; {len(sk.loci)} loci, the plasmid's "
           f"{len(loci)} equal to the scalar model ({checks:.1f} s of checks)")
     print(f"windowed: launches K7 {launches['kmer:planes_k32']}, K8 "
-          f"{launches['kmer:planes_k16']}; peak device memory {peak / 2**30:.3f} GiB")
-    print("windowed: minmer op on one chunk " + json.dumps(record))
+          f"{launches['kmer:planes_k16']}, minmer kernel {launches['winnow']}; peak device "
+          f"memory {peak / 2**30:.3f} GiB")
+    print(f"windowed: the minmer kernel equals its plain version on the chromosome's "
+          f"{record['positions']} positions and on {WORST_LEN} of {WORST_VALUES} values, and "
+          f"its CPU run on one chunk of {c} starts: " + json.dumps(record))
     return launches, record
 
 
@@ -3095,6 +3147,10 @@ def main() -> int:
         {"name": "compare", "route": "cuda", "source": src + "compare.cu",
          "replaces": "fpmash_tpu/ops/compare_pallas.py:41",
          "launches": config4_launches["compare"], **k9},
+        # no Pallas kernel: an XLA jit in the JAX package
+        {"name": "winnow", "route": "cuda", "source": src + "winnow.cu",
+         "replaces": "fpmash_tpu/ops/winnow.py:105", "launches": windowed_launches["winnow"],
+         **minmer},
     ]
     # unrouted in the JAX package: launched by their phases through the
     # entry points of the JAX functions they replace
@@ -3113,8 +3169,6 @@ def main() -> int:
                         "replaces": "fpmash_tpu/ops/" + replaces,
                         "entry_point": "fpmash_tpu_torch/" + entry,
                         "routed_in_reference": False, **rec})
-    # no Pallas kernel: an XLA jit in the JAX package, plain PyTorch here
-    print(json.dumps({"device_ops": [minmer]}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,9 +1,10 @@
-"""Windowed min-hash ("minmer") selection on a device, in plain PyTorch.
+"""Windowed min-hash ("minmer") selection: its kernel, plain version and wrapper.
 
 Counterpart of :mod:`fpmash_tpu.ops.winnow` (the reference's
 ``getMinHashPositions``, Sketch.cpp:737-1047), whose device route is an XLA
-jit, not a Pallas kernel.  The declarative formulation, held against the
-reference's incremental model (``scalar/winnow.py``) by the tests:
+jit (``_make_chunk_jit``, ``fpmash_tpu/ops/winnow.py:105``), not a Pallas
+kernel.  The declarative formulation, held against the reference's
+incremental model (``scalar/winnow.py``) by the tests:
 
     position ``p`` is a minmer  iff  some full window ``W`` of
     ``window_size`` consecutive k-mer positions contains ``p`` such that
@@ -12,16 +13,23 @@ reference's incremental model (``scalar/winnow.py``) by the tests:
         distinct), and
       * ``p`` is the earliest occurrence of ``h[p]`` within ``W``.
 
-Window starts go in chunks of ``CHUNK_ELEMS[device.type] // ws`` rows
-(:func:`chunk_marks`): the ``[C, ws]`` windows, each row sorted, the row's
-``mins``-th distinct value as its threshold, every entry at or below it
-whose previous occurrence lies before the window's start marked, and the
-marks OR-ed into position space.
+:func:`minmer_marks` launches the CUDA kernel (``csrc/winnow.cu``) for
+tensors on a CUDA device: tiles of window starts (:func:`launch_plan`), a
+block each, in launches of at most ``LAUNCH_TILES`` tiles; no ``[C, ws]``
+window is gathered.  For tensors on the CPU it runs the plain version,
+:func:`minmer_marks_plain`: window starts in chunks of
+``CHUNK_ELEMS[device.type] // ws`` rows (:func:`chunk_marks`), the ``[C,
+ws]`` windows, each row sorted, the row's ``mins``-th distinct value as its
+threshold, every entry at or below it whose previous occurrence lies before
+the window's start marked, and the marks OR-ed into position space.
+``LAUNCHES`` counts the kernel's launches.  :func:`prev_occurrence` stays
+in PyTorch on either device: its counterpart in the JAX package is a host
+``np.argsort``, not a device op.
 
 Hashes are ``int64`` tensors holding the u64 bits.  The order that counts is
-the unsigned one, so the windows are sorted and compared as *keys*, the
-hashes with their sign bit flipped, whose signed order is the hashes'
-unsigned order.
+the unsigned one: the kernel compares them as u64; the plain version sorts
+and compares *keys*, the hashes with their sign bit flipped, whose signed
+order is the hashes' unsigned order.
 """
 
 from __future__ import annotations
@@ -29,9 +37,21 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-#: window elements ``[C, ws]`` per chunk: 16 Mi on a card; 1 Mi on the CPU,
-#: the JAX package's numpy chunk (tests shrink it to cross chunk edges)
+#: the plain version's window elements ``[C, ws]`` per chunk: 16 Mi on a
+#: card; 1 Mi on the CPU, the JAX package's numpy chunk (tests shrink it to
+#: cross chunk edges)
 CHUNK_ELEMS = {"cuda": 1 << 24, "cpu": 1 << 20}
+
+#: kernel launches in this process (the plain version does not count)
+LAUNCHES = 0
+#: the kernel's geometry: window starts a tile (a block) holds at most; the
+#: candidates a block keeps in shared memory (a power of two; a block with
+#: more uses its region of device-memory scratch); tiles a launch takes at
+#: most, and the scratch bytes its blocks may hold together
+TILE_MAX, SHARED_CAP = 2048, 4096
+LAUNCH_TILES, SCRATCH_BYTES = 1024, 1 << 28
+#: scratch bytes a candidate: hash, relative position, flag
+_CANDIDATE_BYTES = 8 + 4 + 1
 
 _SIGN = -(1 << 63)
 #: the key of 2^64 - 1, the threshold of a row with fewer than ``mins`` values
@@ -78,17 +98,91 @@ def chunk_marks(keys: torch.Tensor, prev: torch.Tensor, w0: int, c: int, ws: int
     return starts[row] + col
 
 
+def launch_plan(n: int, ws: int) -> tuple[int, int, int, int]:
+    """``(tile, n_tiles, tiles_a_launch, scratch_cap)`` of the kernel over
+    ``n`` positions and window ``ws``.  A tile holds half a window of starts
+    (at most ``TILE_MAX``), so that the core all its windows share (``ws -
+    tile + 1`` positions) bounds their thresholds tightly; ``scratch_cap``
+    entries a block of device-memory scratch (a power of two covering the
+    span ``ws + tile - 1`` of the tile's candidates), 0 when shared memory
+    always holds them."""
+    tile = min(max(ws // 2, 1), TILE_MAX)
+    n_tiles = -(-(n - ws + 1) // tile)
+    per = min(n_tiles, LAUNCH_TILES)
+    span = ws + tile - 1
+    if span <= SHARED_CAP:
+        return tile, n_tiles, per, 0
+    cap = 1 << (span - 1).bit_length()
+    return tile, n_tiles, max(1, min(per, SCRATCH_BYTES // (_CANDIDATE_BYTES * cap))), cap
+
+
+def minmer_marks(h: torch.Tensor, prev: torch.Tensor, ws: int, mins: int) -> torch.Tensor:
+    """``uint8 [n]`` marks of the minmer positions of hashes ``h`` (``int64``
+    holding u64 bits) with their previous occurrences ``prev``
+    (:func:`prev_occurrence`), window ``1 <= ws <= n``: the kernel on a CUDA
+    device, :func:`minmer_marks_plain` on the CPU."""
+    global LAUNCHES
+    n = h.numel()
+    for name, x in (("h", h), ("prev", prev)):
+        if x.dtype != torch.int64 or x.dim() != 1 or not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous int64 [n], got {x.dtype} "
+                             f"{tuple(x.shape)}")
+    if prev.shape != h.shape or prev.device != h.device:
+        raise ValueError(f"prev {tuple(prev.shape)} on {prev.device} does not match "
+                         f"h {tuple(h.shape)} on {h.device}")
+    if not 1 <= ws <= n:
+        raise ValueError(f"window {ws} outside [1, {n}]")
+    dev = h.device
+    if dev.type == "cpu":
+        return minmer_marks_plain(h, prev, ws, mins).to(torch.uint8)
+    if dev.type != "cuda":
+        raise ValueError(f"minmer_marks runs on cpu or cuda tensors, not {dev}")
+    from fpmash_tpu_torch.ops._build import check, library
+
+    tile, n_tiles, per, cap = launch_plan(n, ws)
+    marks = torch.zeros(n, dtype=torch.uint8, device=dev)
+    scratch = [None] * 3
+    if cap:
+        scratch = [torch.empty(per * cap, dtype=dt, device=dev)
+                   for dt in (torch.int64, torch.int32, torch.uint8)]
+    mins = min(max(mins, 0), 2**31 - 1)  # any mins < 1, or above ws, selects alike
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for t0 in range(0, n_tiles, per):
+            code = library().fpmash_winnow(
+                h.data_ptr(), prev.data_ptr(), n, ws, mins, tile, t0, min(per, n_tiles - t0),
+                SHARED_CAP, *(None if x is None else x.data_ptr() for x in scratch), cap,
+                marks.data_ptr(), stream)
+            check(code, "winnow kernel launch")
+            LAUNCHES += 1
+    return marks
+
+
+def minmer_marks_plain(h: torch.Tensor, prev: torch.Tensor, ws: int, mins: int) -> torch.Tensor:
+    """Plain version of :func:`minmer_marks`, on any device: ``bool [n]``,
+    the windows of :func:`chunk_marks` in chunks of ``CHUNK_ELEMS`` elements."""
+    n = h.numel()
+    num_w = n - ws + 1
+    C = max(1, min(num_w, CHUNK_ELEMS[h.device.type] // ws))
+    keys = h ^ _SIGN
+    mark = torch.zeros(n, dtype=torch.bool, device=h.device)
+    for w0 in range(0, num_w, C):
+        mark[chunk_marks(keys, prev, w0, min(C, num_w - w0), ws, mins)] = True
+    return mark
+
+
 def minmer_positions(hashes, window_size: int, mins: int, *, device):
     """Minmer ``(positions u32, hashes u64)`` numpy arrays of per-position
     ``hashes`` (u64 values, numpy or ``int64`` tensor), in ascending
     position order like the reference's ``getMinHashPositions``.
 
     The window is clamped to the number of positions (Sketch.cpp:748-751).
-    Every chunk runs on ``device``; only the minmers leave it.
+    The selection runs on ``device`` (:func:`minmer_marks`); only the
+    minmers leave it.
     """
     device = torch.device(device)
     if isinstance(hashes, torch.Tensor):
-        h = hashes.to(device=device, dtype=torch.int64)
+        h = hashes.to(device=device, dtype=torch.int64).contiguous()
     else:
         h = torch.from_numpy(np.array(hashes, np.uint64).view(np.int64)).to(device)
     n = h.numel()
@@ -97,13 +191,6 @@ def minmer_positions(hashes, window_size: int, mins: int, *, device):
     ws = min(window_size, n)
     if ws < 1:
         raise ValueError(f"window_size must be at least 1, got {window_size}")
-    num_w = n - ws + 1
-    C = max(1, min(num_w, CHUNK_ELEMS[device.type] // ws))
-    keys = h ^ _SIGN
-    prev = prev_occurrence(h)
-    mark = torch.zeros(n, dtype=torch.bool, device=device)
-    for w0 in range(0, num_w, C):
-        mark[chunk_marks(keys, prev, w0, min(C, num_w - w0), ws, mins)] = True
-    pos = mark.nonzero().flatten()
+    pos = minmer_marks(h, prev_occurrence(h), ws, mins).nonzero().flatten()
     return (pos.cpu().numpy().astype(np.uint32),
             h[pos].cpu().numpy().view(np.uint64))

@@ -108,14 +108,15 @@ def _refuse(*args, **kwargs):
     raise AssertionError(f"a process was started while importing: {args}")
 subprocess.Popen = subprocess.run = _refuse
 import fpmash_tpu_torch.ops.sort_cuda, fpmash_tpu_torch.ops.kmers_cuda
-import fpmash_tpu_torch.ops.fused_cuda
+import fpmash_tpu_torch.ops.fused_cuda, fpmash_tpu_torch.ops.winnow
 from fpmash_tpu_torch.ops import _build
 assert _build.library.cache_info().currsize == 0, "the kernels' library was loaded"
 """
 
 
 def test_slice5_wrappers_load_no_jax_and_build_nothing():
-    """``ops/sort_cuda.py`` (K15) and the wrappers extended with K10-K13."""
+    """``ops/sort_cuda.py`` (K15), the wrappers extended with K10-K13 and
+    ``ops/winnow.py`` (the minmer kernel)."""
     assert _new_jax_modules(_NO_BUILD) == []
 
 

@@ -31,10 +31,13 @@ _MIX = np.uint64(0x9E3779B97F4A7C15)
 
 def _hashes(rng, n: int, kind: str) -> np.ndarray:
     """u64 hashes of ``kind``: ``full`` uniform over 2^64, ``repeats`` 9
-    values spread over the range, ``few`` 3 values."""
+    values spread over the range, ``few`` 3 values, ``edges`` only 0, 5,
+    2^63 and 2^64 - 1."""
     if kind == "full":
         return rng.integers(0, 1 << 63, size=n, dtype=np.uint64) * np.uint64(2) + \
             rng.integers(0, 2, size=n, dtype=np.uint64)
+    if kind == "edges":
+        return np.array([0, 5, 1 << 63, (1 << 64) - 1], np.uint64)[rng.integers(0, 4, size=n)]
     alpha = 9 if kind == "repeats" else 3
     return (rng.integers(1, alpha + 1, size=n).astype(np.uint64) * _MIX)
 
@@ -208,16 +211,28 @@ def cuda_device():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("kind", ["full", "repeats", "few"])
+@pytest.mark.parametrize("kind", ["full", "repeats", "few", "edges"])
 def test_minmer_op_on_card_equals_cpu(cuda_device, kind, monkeypatch):
+    """The kernel (``csrc/winnow.cu``) against the plain version on the CPU:
+    windows of 1 and 2 positions, around the tile (``TILE_MAX`` starts) and
+    twice it, past the positions; mins 0, 1 and more than the values; a
+    window of 10 000 with mins 5 000, whose tiles overflow shared memory;
+    then every tile on the device-memory path (a shared cap of 64) in
+    launches of 3 tiles."""
     rng = np.random.default_rng(21)
     h = _hashes(rng, 30_000, kind)
-    for ws, mins, elems in ((1000, 10, 1 << 24), (1000, 10, 1000 * 7 + 3), (64, 70, 1 << 24),
-                            (40_000, 100, 1 << 24)):
-        monkeypatch.setitem(winnow.CHUNK_ELEMS, "cuda", elems)
-        got = minmer_positions(h, ws, mins, device=cuda_device)
-        want = minmer_positions(h, ws, mins, device=CPU)
-        assert _pairs(*got) == _pairs(*want)
+    t = winnow.TILE_MAX
+    cases = [(1000, 10), (64, 70), (40_000, 100), (1, 1), (2, 1), (t - 1, 5), (t, 5),
+             (t + 1, 5), (2 * t - 1, 5), (2 * t + 1, 5), (9000, 0), (300, 1), (10_000, 5000)]
+    for step, (cap, tiles) in enumerate(((winnow.SHARED_CAP, winnow.LAUNCH_TILES), (64, 3))):
+        monkeypatch.setattr(winnow, "SHARED_CAP", cap)
+        monkeypatch.setattr(winnow, "LAUNCH_TILES", tiles)
+        for ws, mins in cases[: 5 if step else None]:
+            before = winnow.LAUNCHES
+            got = minmer_positions(h, ws, mins, device=cuda_device)
+            assert winnow.LAUNCHES > before
+            want = minmer_positions(h, ws, mins, device=CPU)
+            assert _pairs(*got) == _pairs(*want), (ws, mins, cap)
 
 
 @pytest.mark.gpu
