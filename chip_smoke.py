@@ -46,7 +46,8 @@ versions; the k-mer kernels (K5-K8, K10-K12) also on a tile-edge set
 edges, a misaligned view).  The minmer kernel (``csrc/winnow.cu``, which
 replaces the JAX package's XLA jit of the selection) runs in ``sketch -W``
 and ``find`` and is held against its plain version over the whole 5 Mbase
-chromosome.  Every phase passes or raises; nothing is caught.
+chromosome and at the path's other shapes.  Every phase passes or raises;
+nothing is caught.
 
 The last three lines of standard output are the kernels' JSON record
 (launch counts from the main paths, for the Duval base of
@@ -58,8 +59,10 @@ with its 10^8-pair time and bound (``all_pairs_ms``, ``all_pairs_bound_ms``)
 and its random lists (``random_lists``) beside it; each kernel's bound, the
 least time the card could take for its work, from its bytes and integer
 operations at that shape; for K15 the time of ``torch.sort`` and
-``gather``; for the minmer kernel its times on one chunk of 1 677 starts
-and on 1 000 000 positions of 3 values (``chunk``, ``worst``); for K1-K4,
+``gather``; for the minmer kernel its times on one chunk of 1 677 starts,
+on 1 000 000 positions of 3 values, on a query strand and on the plasmid
+at -k 16 (``chunk``, ``worst``, ``query``, ``plasmid_k16``), its launches
+by shape and the windowed phase's peak device memory; for K1-K4,
 K13 and K14 the time of their C entry point alone
 (``launch_ms``) beside the wrapper's, K13's under dna16 beside byte4
 (``dna16_ms``, ``dna16_launch_ms``),
@@ -487,6 +490,7 @@ def _reset_counts():
 
     fused_cuda.LAUNCHES = 0
     winnow.LAUNCHES = 0
+    winnow.LAUNCH_SHAPES.clear()
     fused_cuda.INLINE_LAUNCHES = 0
     walk_cuda.LAUNCHES = 0
     compare_cuda.LAUNCHES = 0
@@ -2348,6 +2352,19 @@ def _minmer_bound(n: int) -> dict:
     return _bound(17 * n, 0)
 
 
+def _minmer_launches_by_shape(shapes) -> dict:
+    """The minmer kernel's launches (``ops/winnow.LAUNCH_SHAPES``, keyed by
+    ``(n, ws, mins)``) by the shapes of the windowed phase: find's query
+    strands (the window clamped to the strand: one start), the chromosome
+    and the plasmid at find's window, the plasmid at -k 16 (-L 1 000)."""
+    out = {"query strands": 0, f"-L {FIND_WINDOW}": 0, "-k 16 -L 1000": 0, "other": 0}
+    for (n, ws, _), count in shapes.items():
+        key = ("query strands" if ws == n < FIND_WINDOW else f"-L {FIND_WINDOW}"
+               if ws == FIND_WINDOW else "-k 16 -L 1000" if ws == 1000 else "other")
+        out[key] += count
+    return out
+
+
 #: the windowed phase's worst case for the minmer kernel: 1 000 000
 #: positions of 3 distinct hashes at find's window and mins
 WORST_LEN, WORST_VALUES = 1_000_000, 3
@@ -2368,12 +2385,15 @@ def phase_windowed_find(dev, rng, work: Path):
     plain ``murmur3_bytes_batch``'s 32-bit hashes).  The CLI runs must have
     launched the minmer kernel (``csrc/winnow.cu``).  Then the kernel is held
     byte for byte against its plain version on the card over the whole
-    chromosome (``minmer_marks_plain``, timed once on the host clock) and
-    over WORST_LEN positions of WORST_VALUES hashes, and on one chunk of
-    1 677 starts (16 Mi window elements, the plain version's chunk on the
-    card) ``minmer_positions`` on the card equals its CPU run; each is
-    timed warm with CUDA events.  Returns the launches and the kernel's
-    record."""
+    chromosome (``minmer_marks_plain``, timed once on the host clock), over
+    WORST_LEN positions of WORST_VALUES hashes, over a query strand (the
+    first planted read's 4 980 positions, the window clamped to them) and
+    over the plasmid's 199 985 positions at -k 16 (-L 1 000, mins 10), and
+    on one chunk of 1 677 starts (16 Mi window elements, the plain
+    version's chunk on the card) ``minmer_positions`` on the card equals its
+    CPU run; each is timed warm with CUDA events.  The CLI runs' minmer
+    launches are counted by shape, and their peak device memory kept.
+    Returns the launches and the kernel's record."""
     import io
 
     import numpy as np
@@ -2381,6 +2401,7 @@ def phase_windowed_find(dev, rng, work: Path):
 
     from fpmash_tpu_torch.cli import main
     from fpmash_tpu_torch.models.sketch import Sketch, SketchParams, _position_hashes
+    from fpmash_tpu_torch.ops import winnow as winnow_mod
     from fpmash_tpu_torch.ops.murmur3 import murmur3_bytes_batch
     from fpmash_tpu_torch.ops.winnow import (
         CHUNK_ELEMS,
@@ -2446,6 +2467,7 @@ def phase_windowed_find(dev, rng, work: Path):
                        if line.startswith("[fpmash] ") and "find-query" not in line]
         printed[name] = std.getvalue()
     launches = _launches()
+    by_shape = _minmer_launches_by_shape(winnow_mod.LAUNCH_SHAPES)
     trace_mod._ENABLED = False
     peak = torch.cuda.max_memory_allocated(dev)
     if launches["kmer:planes_k32"] < 1 or launches["kmer:planes_k16"] < 1:
@@ -2542,6 +2564,27 @@ def phase_windowed_find(dev, rng, work: Path):
                        "ms": _time_ms(lambda: minmer_marks(hw, pw, ws, mins), 5),
                        "plain_ms": worst_plain_ms, "bound_ms": _minmer_bound(WORST_LEN)["bound_ms"]}
 
+    # the two shapes of the path's other launches: a find query strand (the
+    # window clamped to its positions: one start) and the plasmid at -k 16
+    raw16 = SketchParams(kmer_size=16, sketch_size=10, window_size=1000, windowed=True)
+    for key, hx, wx, mx in (
+            ("query", _position_hashes(lut[reads[0]].tobytes(), p, dev), None, mins),
+            ("plasmid_k16", _position_hashes(raw, raw16, dev), raw16.window_size,
+             raw16.sketch_size)):
+        wx = min(wx or ws, hx.numel())
+        px = prev_occurrence(hx)
+        plain = minmer_marks_plain(hx, px, wx, mx)
+        got = minmer_marks(hx, px, wx, mx)
+        if not torch.equal(got, plain.to(torch.uint8)):
+            raise AssertionError(f"the minmer kernel differs from its plain version ({key})")
+        record[key] = {"positions": hx.numel(), "window": wx, "mins": mx,
+                       "minmers": int(got.sum()),
+                       "ms": _time_ms(lambda: minmer_marks(hx, px, wx, mx), 50),
+                       "plain_ms": _time_ms(lambda: minmer_marks_plain(hx, px, wx, mx), 3),
+                       "bound_ms": _minmer_bound(hx.numel())["bound_ms"]}
+    record["launches_by_shape"] = by_shape
+    record["phase_peak_gib"] = peak / 2**30
+
     for name in commands:
         print(f"windowed: {name}: {walls[name]:.3f} s wall; spans: " + "; ".join(spans[name]))
     print(f"windowed: {len(found.splitlines())} find lines, identical for ref.msw and ref.fa; "
@@ -2549,11 +2592,12 @@ def phase_windowed_find(dev, rng, work: Path):
           f"{max(scores):g}), no random read; {len(sk.loci)} loci, the plasmid's "
           f"{len(loci)} equal to the scalar model ({checks:.1f} s of checks)")
     print(f"windowed: launches K7 {launches['kmer:planes_k32']}, K8 "
-          f"{launches['kmer:planes_k16']}, minmer kernel {launches['winnow']}; peak device "
-          f"memory {peak / 2**30:.3f} GiB")
+          f"{launches['kmer:planes_k16']}, minmer kernel {launches['winnow']} (by shape: "
+          f"{json.dumps(by_shape)}); peak device memory {peak / 2**30:.3f} GiB")
     print(f"windowed: the minmer kernel equals its plain version on the chromosome's "
-          f"{record['positions']} positions and on {WORST_LEN} of {WORST_VALUES} values, and "
-          f"its CPU run on one chunk of {c} starts: " + json.dumps(record))
+          f"{record['positions']} positions, on {WORST_LEN} of {WORST_VALUES} values, on a "
+          f"query strand and on the plasmid at -k 16, and its CPU run on one chunk of {c} "
+          f"starts: " + json.dumps(record))
     return launches, record
 
 

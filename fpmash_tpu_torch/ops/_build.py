@@ -70,10 +70,10 @@ _SIGNATURES = {
     "fpmash_factor_words": [_p, _i64, _p, _p, _i64, _i32, _i32, _i32, _i32, _p, _i32, _p, _p],
     # words, n_words, lengths, n_rows, seed, h1, h2, count, stream
     "fpmash_hash_words": [_p, _i32, _p, _i64, _u64, _p, _p, _p, _p],
-    # h, prev, n, ws, mins, tile, tile0, n_tiles, cap, scratch_key,
-    # scratch_pos, scratch_flag, scratch_cap, marks, stream
-    "fpmash_winnow": [_p, _p, _i64, _i64, _i32, _i64, _i64, _i64, _i32, _p, _p, _p, _i64, _p,
-                      _p],
+    # h, prev, n, ws, mins, tile, tile0, n_tiles, threads, starts, cap,
+    # stage, scratch_idx, scratch_flag, scratch_cap, marks, stream
+    "fpmash_winnow": [_p, _p, _i64, _i64, _i32, _i64, _i64, _i64, _i32, _i32, _i32, _i32, _p,
+                      _p, _i64, _p, _p],
 }
 
 

@@ -15,10 +15,9 @@ incremental model (``scalar/winnow.py``) by the tests:
 
 :func:`minmer_marks` launches the CUDA kernel (``csrc/winnow.cu``) for
 tensors on a CUDA device: tiles of window starts (:func:`launch_plan`), a
-block each, in launches of at most ``LAUNCH_TILES`` tiles; no ``[C, ws]``
-window is gathered.  For tensors on the CPU it runs the plain version,
-:func:`minmer_marks_plain`: window starts in chunks of
-``CHUNK_ELEMS[device.type] // ws`` rows (:func:`chunk_marks`), the ``[C,
+block each; no ``[C, ws]`` window is gathered.  For tensors on the CPU it
+runs the plain version, :func:`minmer_marks_plain`: window starts in chunks
+of ``CHUNK_ELEMS[device.type] // ws`` rows (:func:`chunk_marks`), the ``[C,
 ws]`` windows, each row sorted, the row's ``mins``-th distinct value as its
 threshold, every entry at or below it whose previous occurrence lies before
 the window's start marked, and the marks OR-ed into position space.
@@ -34,6 +33,9 @@ order is the hashes' unsigned order.
 
 from __future__ import annotations
 
+from collections import Counter
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -42,16 +44,45 @@ import torch
 #: cross chunk edges)
 CHUNK_ELEMS = {"cuda": 1 << 24, "cpu": 1 << 20}
 
-#: kernel launches in this process (the plain version does not count)
+#: kernel launches in this process (the plain version does not count), and
+#: the same launches by ``(n, ws, mins)`` (``ws`` as launched: clamped to n)
 LAUNCHES = 0
-#: the kernel's geometry: window starts a tile (a block) holds at most; the
-#: candidates a block keeps in shared memory (a power of two; a block with
-#: more uses its region of device-memory scratch); tiles a launch takes at
-#: most, and the scratch bytes its blocks may hold together
-TILE_MAX, SHARED_CAP = 2048, 4096
-LAUNCH_TILES, SCRATCH_BYTES = 1024, 1 << 28
-#: scratch bytes a candidate: hash, relative position, flag
-_CANDIDATE_BYTES = 8 + 4 + 1
+LAUNCH_SHAPES: Counter = Counter()
+#: the kernel's geometry (``csrc/winnow.cu``): a tile of at most
+#: ``TILE_MAX`` starts a block, fewer where that keeps ``MIN_BLOCKS`` blocks
+#: (one an SM); ``THREADS_MIN`` to ``THREADS_MAX`` threads a block; at most
+#: ``SHARED_CAP`` candidates in shared memory (a power of two; tests shrink
+#: it).  A block whose candidates may exceed its room uses its region of
+#: device-memory scratch, in launches of at most ``LAUNCH_TILES`` tiles and
+#: ``SCRATCH_BYTES``.
+TILE_MAX, MIN_BLOCKS = 3072, 132
+THREADS_MIN, THREADS_MAX = 128, 1024
+SHARED_CAP, LAUNCH_TILES, SCRATCH_BYTES = 1 << 16, 1024, 1 << 28
+#: a copy of the kernel's shared-memory layout (kBins, kMiscBytes and
+#: kSmemMax in ``csrc/winnow.cu``, whose entry point rejects a plan that does
+#: not fit): histogram bins, the bytes a block may take, the fixed bytes (two
+#: histograms, the block's counters), a staged position (hash, range start),
+#: a candidate (its index into the span, flag); and the candidates a staged
+#: span leaves room for at least
+_BINS, _SMEM_MAX = 2048, 232_448
+_FIXED_BYTES, _STAGE_BYTES, _CANDIDATE_BYTES = _BINS * 8 + 512, 8 + 2, 4 + 1
+_STAGE_ROOM = 1024
+
+
+class Plan(NamedTuple):
+    """The kernel's geometry over ``n`` positions and window ``ws``
+    (:func:`launch_plan`)."""
+
+    tile: int  # window starts a block
+    span: int  # positions a block reads: ws + tile - 1
+    n_tiles: int
+    per: int  # tiles a launch
+    threads: int  # threads a block
+    starts: int  # starts a thread in the sweep: 1, 2 or 4
+    cap: int  # candidates in shared memory (a power of two)
+    stage: bool  # the tile's span staged in shared memory
+    scratch_cap: int  # device-memory candidates a block (0: none allocated)
+
 
 _SIGN = -(1 << 63)
 #: the key of 2^64 - 1, the threshold of a row with fewer than ``mins`` values
@@ -98,22 +129,39 @@ def chunk_marks(keys: torch.Tensor, prev: torch.Tensor, w0: int, c: int, ws: int
     return starts[row] + col
 
 
-def launch_plan(n: int, ws: int) -> tuple[int, int, int, int]:
-    """``(tile, n_tiles, tiles_a_launch, scratch_cap)`` of the kernel over
-    ``n`` positions and window ``ws``.  A tile holds half a window of starts
-    (at most ``TILE_MAX``), so that the core all its windows share (``ws -
-    tile + 1`` positions) bounds their thresholds tightly; ``scratch_cap``
-    entries a block of device-memory scratch (a power of two covering the
-    span ``ws + tile - 1`` of the tile's candidates), 0 when shared memory
-    always holds them."""
-    tile = min(max(ws // 2, 1), TILE_MAX)
-    n_tiles = -(-(n - ws + 1) // tile)
-    per = min(n_tiles, LAUNCH_TILES)
+def _pow2_ceil(x: int) -> int:
+    return 1 << max(x - 1, 0).bit_length()
+
+
+def launch_plan(n: int, ws: int) -> Plan:
+    """The kernel's :class:`Plan` over ``n`` positions and window ``ws``.
+
+    A tile holds half a window of starts (at most ``TILE_MAX``, and fewer
+    where that keeps ``MIN_BLOCKS`` blocks), so that the core all its windows
+    share (``ws - tile + 1`` positions) bounds their thresholds tightly.  A
+    window of under ``2 THREADS_MIN`` positions takes a tile of
+    ``THREADS_MIN`` starts, a start a thread: its core is small or empty, so
+    it admits more candidates, from far fewer blocks.  The span (``ws + tile
+    - 1`` positions) is staged in shared memory where it fits beside
+    ``_STAGE_ROOM`` candidates; the candidates take the rest, up to
+    the span rounded up to a power of two (the most a tile can have), and
+    device-memory scratch of that size a block only where they do not fit.
+    A block takes an eighth of that power of two in threads, so that a
+    thread sweeps 1, 2 or 4 starts."""
+    num_w = n - ws + 1
+    tile = max(1, min(max(ws // 2, THREADS_MIN), TILE_MAX, -(-num_w // MIN_BLOCKS)))
+    n_tiles = -(-num_w // tile)
     span = ws + tile - 1
-    if span <= SHARED_CAP:
-        return tile, n_tiles, per, 0
-    cap = 1 << (span - 1).bit_length()
-    return tile, n_tiles, max(1, min(per, SCRATCH_BYTES // (_CANDIDATE_BYTES * cap))), cap
+    need = _pow2_ceil(span)
+    threads = min(THREADS_MAX, max(THREADS_MIN, need // 8))
+    starts = next(k for k in (1, 2, 4) if tile <= k * threads)
+    stage = _FIXED_BYTES + _STAGE_BYTES * span + _CANDIDATE_BYTES * _STAGE_ROOM <= _SMEM_MAX
+    room = (_SMEM_MAX - _FIXED_BYTES - _STAGE_BYTES * span * stage) // _CANDIDATE_BYTES
+    cap = min(SHARED_CAP, need, 1 << (room.bit_length() - 1))
+    if cap == need:
+        return Plan(tile, span, n_tiles, n_tiles, threads, starts, cap, stage, 0)
+    per = max(1, min(n_tiles, LAUNCH_TILES, SCRATCH_BYTES // (_CANDIDATE_BYTES * need)))
+    return Plan(tile, span, n_tiles, per, threads, starts, cap, stage, need)
 
 
 def minmer_marks(h: torch.Tensor, prev: torch.Tensor, ws: int, mins: int) -> torch.Tensor:
@@ -139,22 +187,24 @@ def minmer_marks(h: torch.Tensor, prev: torch.Tensor, ws: int, mins: int) -> tor
         raise ValueError(f"minmer_marks runs on cpu or cuda tensors, not {dev}")
     from fpmash_tpu_torch.ops._build import check, library
 
-    tile, n_tiles, per, cap = launch_plan(n, ws)
+    plan = launch_plan(n, ws)
     marks = torch.zeros(n, dtype=torch.uint8, device=dev)
-    scratch = [None] * 3
-    if cap:
-        scratch = [torch.empty(per * cap, dtype=dt, device=dev)
-                   for dt in (torch.int64, torch.int32, torch.uint8)]
+    scratch = [None, None]
+    if plan.scratch_cap:
+        scratch = [torch.empty(plan.per * plan.scratch_cap, dtype=dt, device=dev)
+                   for dt in (torch.int32, torch.uint8)]
     mins = min(max(mins, 0), 2**31 - 1)  # any mins < 1, or above ws, selects alike
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        for t0 in range(0, n_tiles, per):
+        for t0 in range(0, plan.n_tiles, plan.per):
             code = library().fpmash_winnow(
-                h.data_ptr(), prev.data_ptr(), n, ws, mins, tile, t0, min(per, n_tiles - t0),
-                SHARED_CAP, *(None if x is None else x.data_ptr() for x in scratch), cap,
-                marks.data_ptr(), stream)
+                h.data_ptr(), prev.data_ptr(), n, ws, mins, plan.tile, t0,
+                min(plan.per, plan.n_tiles - t0), plan.threads, plan.starts, plan.cap,
+                int(plan.stage), *(None if x is None else x.data_ptr() for x in scratch),
+                plan.scratch_cap, marks.data_ptr(), stream)
             check(code, "winnow kernel launch")
             LAUNCHES += 1
+            LAUNCH_SHAPES[(n, ws, mins)] += 1
     return marks
 
 

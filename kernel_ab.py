@@ -1,4 +1,5 @@
-"""Time kernels of checkouts of the port, in turns, on one card: K1-K15.
+"""Time kernels of checkouts of the port, in turns, on one card: K1-K15 and
+the minmer kernel.
 
     python3 kernel_ab.py TREE_A TREE_B [--rounds 2] [--only k2 k4 ...]
 
@@ -41,7 +42,21 @@ at the main paths' shapes on inputs made from a fixed seed:
   ``chip_smoke._cluster_lists`` makes them: K9 at ``dist``'s 10 000 x 100
   and at one all-pairs tile (the first ``ops/compare._TILE_PAIRS // 10 000``
   rows against all 10 000), and K2 at a tile of the first 1 000 rows
-  against all 10 000 (``k2_tile_ms``, 10^7 pairs).
+  against all 10 000 (``k2_tile_ms``, 10^7 pairs);
+* the minmer kernel (``ops/winnow.minmer_marks``) at its five shapes, on
+  the k-mer hashes of 5 000 000 random bases (k = 21, find's -L 10 000
+  and mins 100): the whole chromosome (``winnow_chrom_ms``), its first
+  chunk of 1 677 starts (``winnow_chunk_ms``), a query strand of 5 000
+  bases, 4 980 positions, one window (``winnow_query_ms``), 1 000 000
+  positions of 3 values (``winnow_worst_ms``), and 200 000 random bases at
+  k = 16, -L 1 000, mins 10 (``winnow_k16_ms``); and at a window of 3
+  positions, mins 1, over the chromosome's first 1 000 000 positions
+  (``winnow_w3_ms``; 200 calls a time at the small shapes, whose pace the
+  wrapper's host work sets); each but the chromosome is checked against
+  ``minmer_marks_plain`` before it is timed;
+  beside each, the device time of the same calls by kernel
+  (``winnow_*_device_ms``, ``torch.profiler``), without the host's share
+  of the wrapper.
 
 Runs go A B B A in each round, so both trees meet the card in the same
 states.  ``--only`` times just the keys that start with one of its
@@ -52,6 +67,7 @@ limit as ``nvidia-smi`` gives them.  It needs a CUDA card.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import subprocess
 import sys
@@ -76,6 +92,24 @@ def _time_ms(fn, reps: int = 20) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _device_ms(fn, reps: int = 20) -> dict:
+    """Device time of one call of ``fn`` by kernel name (``torch.profiler``
+    over ``reps`` warm calls), and their sum under ``"total"``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {evt.key[:60]: evt.device_time_total / reps / 1e3
+           for evt in prof.key_averages() if evt.device_time_total}
+    out["total"] = sum(out.values())
+    return out
 
 
 def worker(tree: Path, only: list[str]) -> dict:
@@ -110,6 +144,7 @@ def worker(tree: Path, only: list[str]) -> dict:
         kmers,
         sort_cuda,
         walk_cuda,
+        winnow,
     )
     from fpmash_tpu_torch.ops import kmers_cuda as kc
     from fpmash_tpu_torch.ops.compare import _TILE_PAIRS
@@ -171,6 +206,31 @@ def worker(tree: Path, only: list[str]) -> dict:
     tile_walk = (ref[:1000], ref_len[:1000], ref, ref_len, SKETCH)
     words = icfl_cuda.factor_words(flat, starts, lengths, "ICFL_COMB")[0]
 
+    @functools.lru_cache(maxsize=None)
+    def minmer_shapes() -> dict:
+        """``(h, prev, ws, mins)`` of the minmer kernel at its five shapes
+        and at a window of 3."""
+        from fpmash_tpu_torch.models.sketch import SketchParams, _position_hashes
+        from fpmash_tpu_torch.ops.winnow import prev_occurrence
+
+        own = np.random.default_rng(2028)
+        acgt = np.frombuffer(b"ACGT", np.uint8)
+        chrom = acgt[own.integers(0, 4, size=BASES)].tobytes()
+        p21 = SketchParams(kmer_size=K_WIDE, sketch_size=100, window_size=10_000, windowed=True)
+        p16 = SketchParams(kmer_size=K_NARROW, sketch_size=10, window_size=1000, windowed=True)
+        hc = _position_hashes(chrom, p21, dev)
+        values = torch.from_numpy(own.integers(0, 1 << 63, size=3, dtype=np.uint64).view(np.int64))
+        hw = values[torch.from_numpy(own.integers(0, 3, size=1_000_000))].to(dev)
+        h16 = _position_hashes(acgt[own.integers(0, 4, size=200_000)].tobytes(), p16, dev)
+        out = {}
+        for key, h, ws, mins in (
+                ("chrom", hc, 10_000, 100), ("chunk", hc[: 1677 + 9999], 10_000, 100),
+                ("query", _position_hashes(chrom[:5000], p21, dev), 4980, 100),
+                ("worst", hw, 10_000, 100), ("k16", h16, 1000, 10),
+                ("w3", hc[:1_000_000].contiguous(), 3, 1)):
+            out[key] = (h, prev_occurrence(h), ws, mins)
+        return out
+
     timings = {
         "k2_ms": lambda: _time_ms(lambda: walk_cuda.pairwise_walk(*fp_walk)),
         "k2_launch_ms": lambda: _time_ms(_walk_launch(*fp_walk)),
@@ -216,6 +276,15 @@ def worker(tree: Path, only: list[str]) -> dict:
             windows, lengths, 42, p, "inline")) for pack in ("byte4", "dna16")},
         **{f"k13_{pack}_launch_ms": lambda p=pack: _time_ms(_fingerprint_rows_launch(
             windows, lengths, p)) for pack in ("byte4", "dna16")},
+        # 200 calls at the small shapes, where the wrapper's host work sets the pace
+        **{f"winnow_{shape}_ms": lambda x=shape: _time_ms(
+            lambda: winnow.minmer_marks(*minmer_shapes()[x]), reps=20 if x == "chrom" else 200)
+           for shape in ("chrom", "chunk", "query", "worst", "k16", "w3")},
+        # the same calls' device time by kernel (the wrapper's fill of the
+        # marks included), from torch.profiler
+        **{f"winnow_{shape}_device_ms": lambda x=shape: _device_ms(
+            lambda: winnow.minmer_marks(*minmer_shapes()[x]))
+           for shape in ("chrom", "chunk", "query", "worst", "k16", "w3")},
     }
     def same(fn, plain, args):
         got, want = fn(*args), plain(*args)
@@ -228,6 +297,10 @@ def worker(tree: Path, only: list[str]) -> dict:
                        for a in (fp_walk, (ref[:100], ref_len[:100], *tile_walk[2:]))],
         "k4": lambda: same(icfl_cuda.hash_words, icfl_cuda.hash_words_plain,
                            (words, lengths, 42)),
+        "winnow": lambda: [same(lambda *a: [winnow.minmer_marks(*a)],
+                                lambda *a: [winnow.minmer_marks_plain(*a).to(torch.uint8)],
+                                minmer_shapes()[x])
+                   for x in ("chunk", "query", "worst", "k16", "w3")],
     }
     selected = [key for key in timings if not only or any(key.startswith(p) for p in only)]
     for prefix, check in checks.items():

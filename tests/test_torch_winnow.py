@@ -213,26 +213,128 @@ def cuda_device():
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind", ["full", "repeats", "few", "edges"])
 def test_minmer_op_on_card_equals_cpu(cuda_device, kind, monkeypatch):
-    """The kernel (``csrc/winnow.cu``) against the plain version on the CPU:
-    windows of 1 and 2 positions, around the tile (``TILE_MAX`` starts) and
-    twice it, past the positions; mins 0, 1 and more than the values; a
-    window of 10 000 with mins 5 000, whose tiles overflow shared memory;
-    then every tile on the device-memory path (a shared cap of 64) in
-    launches of 3 tiles."""
+    """The kernel (``csrc/winnow.cu``) against the plain version on the CPU,
+    with no floor of blocks: windows of 1 and 2 positions, around
+    ``TILE_MAX`` (tiles of half of it) and around twice it (full tiles),
+    past the positions; mins 0, 1 and more than the values; a window of
+    10 000 with mins 5 000; then a shared cap of 64 candidates in launches
+    of 3 tiles, where mins 100 and 5 000 put every swept tile past it (the
+    device-memory path)."""
+    monkeypatch.setattr(winnow, "MIN_BLOCKS", 1)
     rng = np.random.default_rng(21)
     h = _hashes(rng, 30_000, kind)
     t = winnow.TILE_MAX
-    cases = [(1000, 10), (64, 70), (40_000, 100), (1, 1), (2, 1), (t - 1, 5), (t, 5),
-             (t + 1, 5), (2 * t - 1, 5), (2 * t + 1, 5), (9000, 0), (300, 1), (10_000, 5000)]
+    cases = [(1000, 10), (64, 70), (40_000, 100), (1, 1), (2, 1), (1000, 100), (10_000, 5000),
+             (t - 1, 5), (t, 5), (t + 1, 5), (2 * t - 1, 5), (2 * t + 1, 5), (9000, 0), (300, 1)]
     for step, (cap, tiles) in enumerate(((winnow.SHARED_CAP, winnow.LAUNCH_TILES), (64, 3))):
         monkeypatch.setattr(winnow, "SHARED_CAP", cap)
         monkeypatch.setattr(winnow, "LAUNCH_TILES", tiles)
-        for ws, mins in cases[: 5 if step else None]:
+        for ws, mins in cases[: 7 if step else None]:
             before = winnow.LAUNCHES
             got = minmer_positions(h, ws, mins, device=cuda_device)
             assert winnow.LAUNCHES > before
             want = minmer_positions(h, ws, mins, device=CPU)
             assert _pairs(*got) == _pairs(*want), (ws, mins, cap)
+
+
+def _card_equals_plain(h: np.ndarray, ws: int, mins: int, dev) -> None:
+    """The kernel's marks on the card equal ``minmer_marks_plain``'s on the
+    card, byte for byte, and the kernel launched."""
+    ht = torch.from_numpy(np.ascontiguousarray(h, np.uint64).view(np.int64)).to(dev)
+    prev = winnow.prev_occurrence(ht)
+    before = winnow.LAUNCHES
+    got = winnow.minmer_marks(ht, prev, ws, mins)
+    assert winnow.LAUNCHES > before
+    want = winnow.minmer_marks_plain(ht, prev, ws, mins).to(torch.uint8)
+    assert torch.equal(got, want), (len(h), ws, mins, winnow.launch_plan(len(h), ws))
+
+
+@pytest.mark.gpu
+def test_minmer_query_shape_on_card(cuda_device):
+    """A find query strand: 4 980 positions, the window clamped to them (one
+    start, one block), at find's mins and others; and a few more positions
+    than the window (a handful of one-start tiles)."""
+    rng = np.random.default_rng(23)
+    for kind in ("full", "repeats", "few"):
+        h = _hashes(rng, 4980, kind)
+        for mins in (100, 1, 0, 5000):
+            _card_equals_plain(h, 4980, mins, cuda_device)
+        _card_equals_plain(_hashes(rng, 4990, kind), 4980, 100, cuda_device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ws", [1, 2, 3])
+def test_minmer_small_windows_on_card(cuda_device, ws, monkeypatch):
+    """Windows of 1-3 positions: tiles of ``THREADS_MIN`` starts, more than
+    the window (no core), and the same windows at one start a tile."""
+    rng = np.random.default_rng(24 + ws)
+    for tile_max, tile in ((winnow.TILE_MAX, winnow.THREADS_MIN), (1, 1)):
+        monkeypatch.setattr(winnow, "TILE_MAX", tile_max)
+        assert winnow.launch_plan(50_000, ws).tile == tile
+        for kind in ("full", "repeats", "few", "edges"):
+            h = _hashes(rng, 50_000, kind)
+            for mins in (0, 1, 2, 5):
+                _card_equals_plain(h, ws, mins, cuda_device)
+
+
+@pytest.mark.gpu
+def test_minmer_overflow_on_card(cuda_device, monkeypatch):
+    """Tiles whose candidates overflow a shared cap of 64 (device-memory
+    scratch, launches of 3 tiles); a crowded bin refined until it fits; and
+    the span read in place past shared memory (a window of 50 000)."""
+    rng = np.random.default_rng(25)
+    with monkeypatch.context() as m:
+        m.setattr(winnow, "SHARED_CAP", 64)
+        m.setattr(winnow, "LAUNCH_TILES", 3)
+        m.setattr(winnow, "MIN_BLOCKS", 1)
+        for kind in ("full", "repeats", "few"):
+            h = _hashes(rng, 40_000, kind)
+            for ws, mins in ((1000, 10), (3000, 100), (500, 70), (200, 3)):
+                assert winnow.launch_plan(len(h), ws).scratch_cap > 0
+                _card_equals_plain(h, ws, mins, cuda_device)
+    with monkeypatch.context() as m:
+        m.setattr(winnow, "SHARED_CAP", 256)
+        h = rng.integers(0, 1 << 20, size=60_000, dtype=np.uint64)
+        h[::500] = np.uint64((1 << 64) - 8)
+        _card_equals_plain(h, 800, 30, cuda_device)
+    h = _hashes(rng, 300_000, "full")
+    assert not winnow.launch_plan(len(h), 50_000).stage
+    _card_equals_plain(h, 50_000, 100, cuda_device)
+
+
+@pytest.mark.gpu
+def test_minmer_low_complexity_on_card(cuda_device):
+    """Few values: 3 (every span below mins values: all candidates marked),
+    128 and 101 (cores at or just above mins values: T at the top, every
+    repeat a candidate), a run of 3 values between random ones (cores below
+    mins values in spans above), and 32-bit hashes (k <= 16)."""
+    rng = np.random.default_rng(26)
+    vals = rng.integers(0, 1 << 63, size=128, dtype=np.uint64)
+    mixed = _hashes(rng, 200_000, "full")
+    mixed[60_000:90_000] = _hashes(rng, 30_000, "few")
+    narrow = rng.integers(0, 1 << 32, size=199_985, dtype=np.uint64)
+    for h, ws, mins in ((_hashes(rng, 1_000_000, "few"), 10_000, 100),
+                        (vals[rng.integers(0, 128, size=200_000)], 10_000, 100),
+                        (vals[rng.integers(0, 101, size=200_000)], 10_000, 100),
+                        (vals[rng.integers(0, 128, size=100_000)], 1000, 10),
+                        (mixed, 10_000, 100), (narrow, 1000, 10)):
+        _card_equals_plain(h, ws, mins, cuda_device)
+
+
+@pytest.mark.gpu
+def test_minmer_full_tiles_on_card(cuda_device, monkeypatch):
+    """Tiles of up to ``TILE_MAX`` starts with no floor of blocks: 1, 2 and 4
+    starts a thread, the bitonic network past a block of candidates, the
+    chromosome's geometry on 400 000 positions."""
+    rng = np.random.default_rng(27)
+    monkeypatch.setattr(winnow, "MIN_BLOCKS", 1)
+    seen = set()
+    for n, ws, mins in ((400_000, 10_000, 100), (100_000, 1200, 40), (100_000, 1400, 40),
+                        (100_000, 300, 250), (100_000, 40, 30)):
+        seen.add(winnow.launch_plan(n, ws).starts)
+        for kind in ("full", "repeats"):
+            _card_equals_plain(_hashes(rng, n, kind), ws, mins, cuda_device)
+    assert seen == {1, 2, 4}
 
 
 @pytest.mark.gpu
