@@ -1335,7 +1335,7 @@ def phase_classic_main_path(dev, rng, work: Path):
         "screen genomes.msh reads.fq": ["screen", str(out / "genomes.msh"), str(out / "reads.fq")],
     }
     walls, spans, printed = {}, {}, {}
-    trace_mod._ENABLED = True  # the stage spans go to stderr, captured below
+    trace_mod.enable(True)  # the stage spans go to stderr, captured below
     _reset_counts()
     for name, argv in commands.items():
         err, std = io.StringIO(), io.StringIO()
@@ -1349,7 +1349,7 @@ def phase_classic_main_path(dev, rng, work: Path):
                        if line.startswith("[fpmash] ")]
         printed[name] = std.getvalue()
     launches = _launches()
-    trace_mod._ENABLED = False
+    trace_mod.enable(False)
     missing = [key for key in CLASSIC_PATH_KERNELS if launches[key] < 1]
     if missing:
         raise AssertionError(f"the classic main path did not launch {missing}: {launches}")
@@ -2452,7 +2452,7 @@ def phase_windowed_find(dev, rng, work: Path):
                                                      "-o", str(out / "plasmid_k16")],
     }
     walls, spans, printed = {}, {}, {}
-    trace_mod._ENABLED = True  # the stage spans go to stderr, captured below
+    trace_mod.enable(True)  # the stage spans go to stderr, captured below
     torch.cuda.reset_peak_memory_stats(dev)
     _reset_counts()
     for name, argv in commands.items():
@@ -2468,7 +2468,7 @@ def phase_windowed_find(dev, rng, work: Path):
         printed[name] = std.getvalue()
     launches = _launches()
     by_shape = _minmer_launches_by_shape(winnow_mod.LAUNCH_SHAPES)
-    trace_mod._ENABLED = False
+    trace_mod.enable(False)
     peak = torch.cuda.max_memory_allocated(dev)
     if launches["kmer:planes_k32"] < 1 or launches["kmer:planes_k16"] < 1:
         raise AssertionError(f"the windowed path did not launch K7 and K8: {launches}")
@@ -2984,14 +2984,14 @@ def phase_native_host(dev, rng, work: Path, smi: str) -> dict:
         """``main(argv)`` with the stage spans captured; its wall, launches,
         host rows and spans."""
         err = io.StringIO()
-        trace_mod._ENABLED = True
+        trace_mod.enable(True)
         _reset_counts()
         t0 = time.perf_counter()
         with contextlib.redirect_stderr(err), contextlib.redirect_stdout(io.StringIO()):
             rc = main(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        trace_mod._ENABLED = False
+        trace_mod.enable(False)
         if rc != 0:
             raise AssertionError(f"{' '.join(argv)}: exit code {rc}\n{err.getvalue()}")
         spans = [line[len("[fpmash] "):] for line in err.getvalue().splitlines()

@@ -96,6 +96,13 @@ def run(args) -> int:
             )
         }
 
+    with trace("format-lines", pairs=len(results)):
+        _write(results, ref, qry, args)
+    return 0
+
+
+def _write(results, ref, qry, args) -> None:
+    """Every passing pair's line, or the ``-t`` table, on standard output."""
     out = sys.stdout
     if args.table:
         out.write("#query\t" + "\t".join(r.name for r in ref.references) + "\n")
@@ -117,4 +124,3 @@ def run(args) -> int:
                     f"{rname}\t{qname}\t{format_g(res.distance)}\t"
                     f"{format_g(res.pvalue)}\t{res.numer}/{res.denom}\n"
                 )
-    return 0

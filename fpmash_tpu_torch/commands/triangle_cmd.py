@@ -123,12 +123,21 @@ def run(args) -> int:
     else:
         result = _merge_results(sk, edge, max_d, max_p, device, mesh)
 
+    with trace("format-lines", pairs=n * (n - 1) // 2):
+        _write(sk, result, edge, args.comment)
+    return 0
+
+
+def _write(sk: Sketch, result, edge: bool, comment: bool) -> None:
+    """The Phylip matrix, or with ``edge`` the passing pairs' lines, on
+    standard output; ``result(i, j)`` computes each pair as it is written."""
+    n = len(sk.references)
     out = sys.stdout
     if not edge:
         out.write(f"\t{n}\n")
     for i in range(n):
         ref = sk.references[i]
-        label = ref.comment if args.comment else ref.name
+        label = ref.comment if comment else ref.name
         if not edge:
             out.write(label)
         for j in range(i):
@@ -136,7 +145,7 @@ def run(args) -> int:
             if edge:
                 if res.passed:
                     other = sk.references[j]
-                    olabel = other.comment if args.comment else other.name
+                    olabel = other.comment if comment else other.name
                     out.write(
                         f"{label}\t{olabel}\t{format_g(res.distance)}\t"
                         f"{format_g(res.pvalue)}\t{res.numer}/{res.denom}\n"
@@ -145,4 +154,3 @@ def run(args) -> int:
                 out.write(f"\t{format_g(res.distance)}")
         if not edge:
             out.write("\n")
-    return 0

@@ -214,7 +214,8 @@ def all_pairs_dist(
         device=device,
         mesh=mesh,
     )
-    for qi, q in enumerate(qry_sketch.references):
-        for ri, r in enumerate(ref_sketch.references):
-            yield ri, qi, pair_result(int(common[ri, qi]), int(denom[ri, qi]), r.length,
-                                      q.length, k, space, max_distance, max_pvalue)
+    with trace("pair-results", pairs=common.size):
+        for qi, q in enumerate(qry_sketch.references):
+            for ri, r in enumerate(ref_sketch.references):
+                yield ri, qi, pair_result(int(common[ri, qi]), int(denom[ri, qi]), r.length,
+                                          q.length, k, space, max_distance, max_pvalue)

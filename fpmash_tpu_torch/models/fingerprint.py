@@ -33,10 +33,10 @@ import os
 from typing import Iterable, Sequence
 
 import numpy as np
-import torch
 
 from fpmash_tpu_torch.ops.factorize import plan
 from fpmash_tpu_torch.ops.icfl_cuda import MAX_ICFL_WIDTH, factor_words
+from fpmash_tpu_torch.parallel.sharded import to_device, to_host
 from fpmash_tpu_torch.scalar.lyndon import FACTORIZATIONS, reverse_complement
 from fpmash_tpu_torch.utils.fasta import read_sequences
 from fpmash_tpu_torch.utils.native_lyndon import factorize_flat
@@ -189,11 +189,10 @@ def family_words(flat: np.ndarray, starts: np.ndarray, lengths: np.ndarray,
     scalar = scalar_rows(flat, starts, lengths, np.flatnonzero(~on_card), factorization, "wide")
     idx = np.flatnonzero(on_card)
     with trace("factor-words", windows=len(idx)):
-        dev_lengths = torch.from_numpy(lengths[idx]).to(device)
-        words, ok = factor_words(torch.from_numpy(flat).to(device),
-                                 torch.from_numpy(starts[idx]).to(device), dev_lengths,
-                                 factorization)
-        bad = idx[~ok.cpu().numpy()]
+        dev_lengths = to_device(lengths[idx], device)
+        words, ok = factor_words(to_device(flat, device), to_device(starts[idx], device),
+                                 dev_lengths, factorization)
+        bad = idx[~to_host(ok)]
     scalar.update(scalar_rows(flat, starts, lengths, bad, factorization, "ok_false"))
     return idx, words, dev_lengths, scalar
 
@@ -204,7 +203,7 @@ def factor_lengths(flat: np.ndarray, starts: np.ndarray, lengths: np.ndarray,
     lengths[b]]`` (see :func:`family_words`)."""
     idx, words, _, scalar = family_words(flat, starts, lengths, factorization, device)
     out: list[np.ndarray] = [np.zeros(0, np.int64)] * len(lengths)
-    for b, ls in zip(idx, lengths_from_words(words.cpu().numpy(), lengths[idx])):
+    for b, ls in zip(idx, lengths_from_words(to_host(words), lengths[idx])):
         out[b] = ls
     for b, ls in scalar.items():
         out[b] = np.asarray(ls, np.int64)

@@ -48,6 +48,7 @@ from typing import Iterable, Mapping
 import numpy as np
 import torch
 
+from fpmash_tpu_torch.parallel.sharded import to_device, to_host
 from fpmash_tpu_torch.utils.trace import trace
 
 #: global fingerprint line cap across all files (Sketch.cpp:37,82)
@@ -249,8 +250,8 @@ class Sketch:
             hashes = partial(_family_hashes, factorization=factorization, seed=p.seed)
         with trace("factorize+hash", windows=n_windows, shards=len(mesh)):
             h1, count = shard_windows(hashes, flat, starts, lengths, mesh)
-            h1 = h1.cpu().numpy().view(np.uint64)
-            count = count.cpu().numpy()
+            h1 = to_host(h1).view(np.uint64)
+            count = to_host(count)
         if not p.use64:
             h1 = h1 & np.uint64(0xFFFFFFFF)
 
@@ -310,12 +311,13 @@ class Sketch:
             self._create_index()
             return
 
-        records = [r for r in records if len(r[2]) >= p.kmer_size]
-        pools = [seq for _, _, seq in records]
-        first = records[0] if records else None
-        first_name, first_comment = (first[0], first[1]) if first else ("", "")
-        count = len(pools)
-        total_len = sum(map(len, pools))
+        with trace("records", records=len(records)):
+            records = [r for r in records if len(r[2]) >= p.kmer_size]
+            pools = [seq for _, _, seq in records]
+            first = records[0] if records else None
+            first_name, first_comment = (first[0], first[1]) if first else ("", "")
+            count = len(pools)
+            total_len = sum(map(len, pools))
         if p.reads and p.target_cov > 0:
             values, counts, count = _sketch_to_coverage(pools, p, device, mesh)
         else:
@@ -465,17 +467,18 @@ class Sketch:
             preserve_case=p.preserve_case,
             hash_seed=p.seed,
         )
-        for r in self.references:
-            with_counts = r.counts is not None and p.counts
-            mr = MshReference(name=r.name, comment=r.comment, length=int(r.length),
-                              counts32_sorted=bool(r.counts_sorted and with_counts))
-            if p.use64:
-                mr.hashes64 = np.asarray(r.hashes, np.uint64)
-            else:
-                mr.hashes32 = np.asarray(r.hashes, np.uint64).astype(np.uint32)
-            if with_counts:
-                mr.counts32 = np.asarray(r.counts, np.uint32)
-            m.references.append(mr)
+        with trace("msh-refs", references=len(self.references)):
+            for r in self.references:
+                with_counts = r.counts is not None and p.counts
+                mr = MshReference(name=r.name, comment=r.comment, length=int(r.length),
+                                  counts32_sorted=bool(r.counts_sorted and with_counts))
+                if p.use64:
+                    mr.hashes64 = np.asarray(r.hashes, np.uint64)
+                else:
+                    mr.hashes32 = np.asarray(r.hashes, np.uint64).astype(np.uint32)
+                if with_counts:
+                    mr.counts32 = np.asarray(r.counts, np.uint32)
+                m.references.append(mr)
         m.loci = list(self.loci)
         with trace("write-msh", references=len(m.references)):
             write_msh(path, m)
@@ -555,10 +558,8 @@ def _hash_u64_vectors(vecs, seed: int, use64: bool, device) -> np.ndarray:
     for i, v in enumerate(vecs):
         arr[i, : len(v)] = v
         cnt[i] = len(v)
-    h1, _ = murmur3_u64_batch(
-        torch.from_numpy(arr.view(np.int64)).to(device), torch.from_numpy(cnt).to(device), seed
-    )
-    h1 = h1.cpu().numpy().view(np.uint64)
+    h1, _ = murmur3_u64_batch(to_device(arr, device), to_device(cnt, device), seed)
+    h1 = to_host(h1).view(np.uint64)
     return h1 if use64 else h1 & np.uint64(0xFFFFFFFF)
 
 
@@ -567,12 +568,8 @@ def _cfl_hashes(flat, starts, lengths, device, *, seed: int):
     ``flat[starts[b] : starts[b] + lengths[b]]`` of host arrays: kernel K1."""
     from fpmash_tpu_torch.ops.fused_cuda import fingerprint_hashes
 
-    h1, _, count = fingerprint_hashes(
-        torch.from_numpy(flat).to(device),
-        torch.from_numpy(starts).to(device),
-        torch.from_numpy(lengths).to(device),
-        seed,
-    )
+    h1, _, count = fingerprint_hashes(to_device(flat, device), to_device(starts, device),
+                                      to_device(lengths, device), seed)
     return h1, count
 
 
@@ -589,14 +586,13 @@ def _family_hashes(flat, starts, lengths, device, *, factorization: str, seed: i
     h1 = torch.zeros(len(lengths), dtype=torch.int64, device=device)
     count = torch.zeros(len(lengths), dtype=torch.int32, device=device)
     with trace("hash-words", windows=len(idx)):
-        rows = torch.from_numpy(idx).to(device)
+        rows = to_device(idx, device)
         h1[rows], _, count[rows] = hash_words(words, dev_lengths, seed)
     if scalar:
-        rows = torch.tensor(list(scalar), dtype=torch.int64, device=device)
-        h1[rows] = torch.tensor([to_signed(hash_u64_vector(v, seed, use64=True))
-                                 for v in scalar.values()], dtype=torch.int64, device=device)
-        count[rows] = torch.tensor([len(v) for v in scalar.values()], dtype=torch.int32,
-                                   device=device)
+        rows = to_device(np.array(list(scalar), np.int64), device)
+        h1[rows] = to_device(np.array([to_signed(hash_u64_vector(v, seed, use64=True))
+                                       for v in scalar.values()], np.int64), device)
+        count[rows] = to_device(np.array([len(v) for v in scalar.values()], np.int32), device)
     return h1, count
 
 
@@ -608,15 +604,15 @@ def _family_hashes(flat, starts, lengths, device, *, factorization: str, seed: i
 def _blob(seqs, k: int) -> np.ndarray:
     """All sequences as one ``uint8`` stream, separated by ``k - 1`` NUL
     bytes (outside every alphabet), so no valid window spans two records."""
-    sep = b"\x00" * (k - 1)
-    joined = sep.join(s.encode("ascii", "replace") if isinstance(s, str) else bytes(s)
-                      for s in seqs)
-    return np.frombuffer(joined, np.uint8)
+    with trace("blob", records=len(seqs)):
+        sep = b"\x00" * (k - 1)
+        joined = sep.join(s.encode("ascii", "replace") if isinstance(s, str) else bytes(s)
+                          for s in seqs)
+        return np.frombuffer(joined, np.uint8)
 
 
 def _to_host(values: torch.Tensor, counts: torch.Tensor, n: int):
-    return (values[:n].cpu().numpy().view(np.uint64),
-            counts[:n].cpu().numpy().astype(np.uint32))
+    return to_host(values[:n]).view(np.uint64), to_host(counts[:n]).astype(np.uint32)
 
 
 def _sketch_pools(seqs: list[str], p: SketchParams, device, mesh=None):
@@ -662,7 +658,7 @@ def _direct_chunk(blob: np.ndarray, pos: int, device):
     buf = np.zeros(_DIRECT_CHUNK, np.uint8)
     buf[: end - pos] = blob[pos:end]
     length = end - pos if end == len(blob) else _DIRECT_CHUNK
-    return torch.from_numpy(buf).to(device), length
+    return to_device(buf, device), length
 
 
 def _merge_counts(vals: list[np.ndarray], counts: list[np.ndarray]):
@@ -831,7 +827,7 @@ def _kmer_hash_pool(seqs: list[str], p: SketchParams, device, mesh=None) -> torc
         launched = []
         for pos, dev in zip(starts[r0 : r0 + len(mesh)], mesh):
             if dev not in streams:
-                streams[dev] = host.to(dev)
+                streams[dev] = to_device(host, dev)
             end = min(pos + _POOL_CHUNK, n)
             launched.append(kmer_hashes(
                 streams[dev][pos:end], end - pos, alphabet=p.alphabet, k=k,
@@ -860,7 +856,7 @@ def _kmer_distinct_counts(seqs: list[str], p: SketchParams, device, mesh=None):
         pool = _kmer_hash_pool(seqs, p, device, mesh)
     with trace("distinct-counts", pool=pool.numel()):
         values, counts = distinct_counts(pool)
-        return values.cpu().numpy().view(np.uint64), counts.cpu().numpy()
+        return to_host(values).view(np.uint64), to_host(counts)
 
 
 def _position_hashes(seq, p: SketchParams, device) -> torch.Tensor:
@@ -887,7 +883,7 @@ def _position_hashes(seq, p: SketchParams, device) -> torch.Tensor:
     n = len(b)
     if n < k:
         return torch.zeros(0, dtype=torch.int64, device=device)
-    stream = torch.from_numpy(np.frombuffer(b, np.uint8).copy()).to(device)
+    stream = to_device(np.frombuffer(b, np.uint8), device)
     m = n - k + 1
     out = torch.empty(m, dtype=torch.int64, device=device)
     if set(p.alphabet) == set("ACGT") and k <= 32:
@@ -953,7 +949,7 @@ def _bottom_k(hashes: torch.Tensor, p: SketchParams, device):
     if p.bloom_bytes > 0 and p.reads:
         from fpmash_tpu_torch.ops.bloom import bloom_admit_counts
 
-        values, counts = bloom_admit_counts(hashes.cpu().numpy().view(np.uint64), p.bloom_bytes)
+        values, counts = bloom_admit_counts(to_host(hashes).view(np.uint64), p.bloom_bytes)
         return values[:s], counts[:s]
     valid = torch.ones(hashes.numel(), dtype=torch.bool, device=hashes.device)
     if hashes.numel() > (1 << 17) and s * 16 <= (1 << 16):

@@ -29,6 +29,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+from fpmash_tpu_torch.utils.trace import trace
+
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 HOST_SRC = _PKG / "native"
@@ -124,8 +126,10 @@ def build() -> Path:
 
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
-    """The kernels' shared library, built on first call in this process."""
-    lib = ctypes.CDLL(str(build()))
+    """The kernels' shared library, built on first call in this process
+    (span ``kernel-load``, ``built`` true where ``nvcc`` ran)."""
+    with trace("kernel-load", lib="fpmash_kernels", built=not library_path().exists()):
+        lib = ctypes.CDLL(str(build()))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
@@ -151,22 +155,25 @@ def host_library_path(name: str) -> Path:
 def host_library(name: str) -> ctypes.CDLL:
     """``native/<name>.cpp`` compiled with ``g++`` (or ``$CXX``) into
     ``build/`` unless this exact build exists, then loaded.  A failed build
-    raises with the compiler's standard error; nothing falls back."""
+    raises with the compiler's standard error; nothing falls back.  Span
+    ``kernel-load``, ``built`` true where the compiler ran."""
     out = host_library_path(name)
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = BUILD_DIR / f"{out.stem}.{os.getpid()}.{threading.get_ident()}.so.tmp"
-        cmd = [*_cxx(), *HOST_FLAGS, "-o", str(tmp), str(HOST_SRC / f"{name}.cpp")]
-        try:
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-        except OSError as exc:  # no such compiler
-            raise RuntimeError(f"host build failed: {' '.join(cmd)}: {exc}") from exc
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"host build failed (exit {proc.returncode}): "
-                               f"{' '.join(cmd)}\n{proc.stderr}")
-        os.replace(tmp, out)  # atomic: concurrent builds never see half a file
-    return ctypes.CDLL(str(out))
+    built = not out.exists()
+    with trace("kernel-load", lib=name, built=built):
+        if built:
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = BUILD_DIR / f"{out.stem}.{os.getpid()}.{threading.get_ident()}.so.tmp"
+            cmd = [*_cxx(), *HOST_FLAGS, "-o", str(tmp), str(HOST_SRC / f"{name}.cpp")]
+            try:
+                proc = subprocess.run(cmd, capture_output=True, text=True)
+            except OSError as exc:  # no such compiler
+                raise RuntimeError(f"host build failed: {' '.join(cmd)}: {exc}") from exc
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(f"host build failed (exit {proc.returncode}): "
+                                   f"{' '.join(cmd)}\n{proc.stderr}")
+            os.replace(tmp, out)  # atomic: concurrent builds never see half a file
+        return ctypes.CDLL(str(out))
 
 
 def check(code: int, what: str) -> None:

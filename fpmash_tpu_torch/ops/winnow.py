@@ -39,6 +39,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from fpmash_tpu_torch.parallel.sharded import to_device, to_host
+
 #: the plain version's window elements ``[C, ws]`` per chunk: 16 Mi on a
 #: card; 1 Mi on the CPU, the JAX package's numpy chunk (tests shrink it to
 #: cross chunk edges)
@@ -234,7 +236,7 @@ def minmer_positions(hashes, window_size: int, mins: int, *, device):
     if isinstance(hashes, torch.Tensor):
         h = hashes.to(device=device, dtype=torch.int64).contiguous()
     else:
-        h = torch.from_numpy(np.array(hashes, np.uint64).view(np.int64)).to(device)
+        h = to_device(np.array(hashes, np.uint64), device)
     n = h.numel()
     if n == 0:
         return np.zeros(0, np.uint32), np.zeros(0, np.uint64)
@@ -242,5 +244,4 @@ def minmer_positions(hashes, window_size: int, mins: int, *, device):
     if ws < 1:
         raise ValueError(f"window_size must be at least 1, got {window_size}")
     pos = minmer_marks(h, prev_occurrence(h), ws, mins).nonzero().flatten()
-    return (pos.cpu().numpy().astype(np.uint32),
-            h[pos].cpu().numpy().view(np.uint64))
+    return to_host(pos).astype(np.uint32), to_host(h[pos]).view(np.uint64)

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from fpmash_tpu_torch.parallel.mesh import default_mesh
+from fpmash_tpu_torch.utils.trace import count
 
 
 def visible_device_count(device="cuda") -> int:
@@ -71,14 +72,28 @@ def row_blocks(n: int, shards: int) -> list[tuple[int, int]]:
     return [(b0, min(b0 + size, n)) for b0 in range(0, n, size)] if n else []
 
 
-def _on(a, dev: torch.device) -> torch.Tensor:
-    """``a`` (a tensor, or a numpy array) as a contiguous tensor on ``dev``."""
+def to_device(a, dev) -> torch.Tensor:
+    """``a`` (a tensor, or a numpy array) as a contiguous tensor on ``dev``.
+
+    Where ``a`` lies on the host, its bytes count as ``h2d_bytes`` of the
+    open span (``utils/trace.py``), whatever ``dev`` is: the count is what
+    the route hands across, so a CPU run counts what a card would get."""
     if isinstance(a, np.ndarray):
         a = np.ascontiguousarray(a)
         if a.dtype == np.uint64:
             a = a.view(np.int64)
         a = torch.from_numpy(a if a.flags.writeable else a.copy())
-    return a.contiguous().to(dev)
+    a = a.contiguous()
+    if a.device.type == "cpu":
+        count("h2d_bytes", a.nbytes)
+    return a.to(dev)
+
+
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """``t`` as a numpy array on the host; its bytes count as ``d2h_bytes``
+    of the open span, whatever device it is on (see :func:`to_device`)."""
+    count("d2h_bytes", t.nbytes)
+    return t.cpu().numpy()
 
 
 def _gather(outs, dst: torch.device, dim: int):
@@ -92,8 +107,9 @@ def _gather(outs, dst: torch.device, dim: int):
 def _run_shards(fn, arrays, mesh, out_dim: int):
     blocks = row_blocks(len(arrays[0]), len(mesh))
     if len(blocks) <= 1:
-        return fn(*(_on(a, mesh[0]) for a in arrays))
-    outs = [fn(*(_on(a[b0:b1], dev) for a in arrays)) for (b0, b1), dev in zip(blocks, mesh)]
+        return fn(*(to_device(a, mesh[0]) for a in arrays))
+    outs = [fn(*(to_device(a[b0:b1], dev) for a in arrays))
+            for (b0, b1), dev in zip(blocks, mesh)]
     return _gather(outs, mesh[0], out_dim)
 
 
@@ -136,7 +152,7 @@ def _replicas(arrays):
 
     def on(dev):
         if dev not in cache:
-            cache[dev] = tuple(_on(a, dev) for a in arrays)
+            cache[dev] = tuple(to_device(a, dev) for a in arrays)
         return cache[dev]
 
     return on

@@ -39,6 +39,8 @@ from __future__ import annotations
 import struct
 from dataclasses import dataclass, field
 
+from fpmash_tpu_torch.utils.trace import trace
+
 
 def _ptr_parts(word: int):
     kind = word & 3
@@ -339,6 +341,19 @@ class _Writer:
 
 
 def write_msh(path: str, m: MshFile) -> None:
+    """Write ``m`` to ``path`` in three traced phases: the message's words
+    (``msh-words``), their bytes (``msh-pack``) and the file (``msh-file``)."""
+    with trace("msh-words", references=len(m.references)):
+        w = _message(m)
+    with trace("msh-pack", words=len(w.words)):
+        data = w.tobytes()
+    with trace("msh-file", bytes=len(data)):
+        with open(path, "wb") as fh:
+            fh.write(data)
+
+
+def _message(m: MshFile) -> _Writer:
+    """The words of ``m``'s single-segment message."""
     w = _Writer()
     root = w.alloc(3 + 4)
     w.put_struct_ptr(0, root, 3, 4)
@@ -406,6 +421,4 @@ def write_msh(path: str, m: MshFile) -> None:
             base = ltag + 1 + i * 3
             w.words[base] = (sequence & 0xFFFFFFFF) | ((position & 0xFFFFFFFF) << 32)
             w.words[base + 2] = hash64
-
-    with open(path, "wb") as fh:
-        fh.write(w.tobytes())
+    return w

@@ -73,9 +73,13 @@ def world(tmp_path_factory):
 def _port(argv, monkeypatch, capsys, shards):
     """The port's CLI on ``shards`` CPU shards: ``(stdout, trace spans)``."""
     monkeypatch.setattr(sharded, "visible_devices", lambda device: (CPU,) * shards)
-    monkeypatch.setattr(trace_mod, "_ENABLED", True)
     capsys.readouterr()
-    assert port_main([*argv, "--device", "cpu"]) == 0
+    was = trace_mod.enabled()
+    trace_mod.enable(True)
+    try:
+        assert port_main([*argv, "--device", "cpu"]) == 0
+    finally:
+        trace_mod.enable(was)
     out = capsys.readouterr()
     return out.out, [line for line in out.err.splitlines() if line.startswith("[fpmash] ")]
 
