@@ -17,6 +17,7 @@ from fpmash_tpu_torch.models.sketch import sketch_from_arrays
 from fpmash_tpu_torch.ops import _build
 from fpmash_tpu_torch.parallel.sharded import to_device, to_host
 from fpmash_tpu_torch.utils import trace as trace_mod
+from fpmash_tpu_torch.utils.msh import MshFile, MshReference, read_msh, write_msh
 from fpmash_tpu_torch.utils.trace import count, trace
 
 CPU = torch.device("cpu")
@@ -237,10 +238,39 @@ def test_sketch_direct_fp_counts_its_copies_and_splits_write_msh(fasta, tmp_path
     (write,) = by["write-msh"]
     assert [s.name for s in spans if s.parent == write.id] == ["msh-words", "msh-pack",
                                                                 "msh-file"]
+    (words,) = by["msh-words"]
+    assert 8 * (words.counters["words"] + 1) == len(on)  # the stream header, then the words
+    # copied in whole arrays: each reference's hashes, name and comment, and the alphabet
+    m = read_msh(str(tmp_path / "on.msh"))
+    lists = [(len(r.hashes32) + 1) // 2 for r in m.references] + [
+        _text_words(t) for r in m.references for t in (r.name, r.comment)]
+    assert words.counters == {"words": words.counters["words"],
+                              "bulk_words": sum(lists) + _text_words(m.alphabet)}
     (refs,) = by["msh-refs"]
     assert refs.parent == write.parent == cmd.id and refs.end <= write.start
     assert by["msh-file"][0].extra == {"bytes": len(on)}
     untraced.clear()
+
+
+def _text_words(text):
+    return (len(text.encode()) + 8) // 8  # and its NUL
+
+
+def test_write_msh_copies_a_job_sized_message_in_whole_arrays(traced, tmp_path):
+    rng = np.random.default_rng(20)
+    m = MshFile(kmer_size=1, alphabet="0123456789", references=[
+        MshReference(name=f"read_{i}", comment="", length=2000,
+                     hashes32=np.sort(rng.integers(0, 2**32, 2000, dtype=np.uint64)).astype(
+                         np.uint32))
+        for i in range(256)])  # a fingerprint job's sketch: 256 reads of 2 000 bases
+    with trace("write-msh") as write:
+        write_msh(str(tmp_path / "job.msh"), m)
+    spans = traced.spans()
+    assert [s.name for s in spans if s.parent == write.id] == ["msh-words", "msh-pack",
+                                                                "msh-file"]
+    (words,) = _by_name(spans)["msh-words"]
+    assert 8 * (words.counters["words"] + 1) == (tmp_path / "job.msh").stat().st_size
+    assert words.counters["bulk_words"] >= 0.95 * words.counters["words"]
 
 
 def _write_msh(path, rng, n):
