@@ -800,22 +800,30 @@ def _chunk_pool_bottom_k(buf: torch.Tensor, length: int, p: SketchParams, need_c
 
 def _kmer_hash_pool(seqs: list[str], p: SketchParams, device, mesh=None) -> torch.Tensor:
     """Every valid k-mer hash of every sequence, in stream order, as one
-    ``int64`` tensor on ``device`` (low 32 bits unless ``use64``).
+    ``int64`` tensor on ``device`` (low 32 bits unless ``use64``): the hashes
+    of their stream (:func:`_blob`, :func:`_kmer_hash_stream`)."""
+    return _kmer_hash_stream(torch.from_numpy(_blob(seqs, p.kmer_size).copy()), p, device, mesh)
 
-    The sequences form one stream (:func:`_blob`), hashed in launches of
-    ``_POOL_CHUNK`` positions that overlap by ``k - 1`` bytes.  With a
-    ``mesh``, launch ``i`` runs on ``mesh[i % D]`` (the stream is put on each
-    of its devices once), the launches go in rounds of one a shard, and the
-    hashes are gathered on ``mesh[0]`` in stream order, which the Bloom
-    admission of ``-b`` depends on.
+
+def _kmer_hash_stream(stream: torch.Tensor, p: SketchParams, device, mesh=None) -> torch.Tensor:
+    """Every valid k-mer hash of a ``uint8`` stream of records separated by
+    ``k - 1`` NUL bytes (:func:`_blob`, :func:`record_stream`), on the host
+    or on a device, in stream order, as one ``int64`` tensor on ``device``
+    (low 32 bits unless ``use64``).
+
+    The stream is hashed in launches of ``_POOL_CHUNK`` positions that
+    overlap by ``k - 1`` bytes.  With a ``mesh``, launch ``i`` runs on
+    ``mesh[i % D]`` (the stream is put on each of its devices once), the
+    launches go in rounds of one a shard, and the hashes are gathered on
+    ``mesh[0]`` in stream order, which the Bloom admission of ``-b`` depends
+    on.
     """
     from fpmash_tpu_torch.ops.kmers import kmer_hashes
     from fpmash_tpu_torch.parallel.sharded import mesh_of
 
     k = p.kmer_size
     mesh = mesh_of(device, mesh)
-    host = torch.from_numpy(_blob(seqs, k).copy())
-    n = host.numel()
+    n = stream.numel()
     starts = []
     for pos in range(0, n, _POOL_CHUNK - (k - 1)):
         starts.append(pos)
@@ -827,7 +835,7 @@ def _kmer_hash_pool(seqs: list[str], p: SketchParams, device, mesh=None) -> torc
         launched = []
         for pos, dev in zip(starts[r0 : r0 + len(mesh)], mesh):
             if dev not in streams:
-                streams[dev] = to_device(host, dev)
+                streams[dev] = to_device(stream, dev)
             end = min(pos + _POOL_CHUNK, n)
             launched.append(kmer_hashes(
                 streams[dev][pos:end], end - pos, alphabet=p.alphabet, k=k,
@@ -836,6 +844,48 @@ def _kmer_hash_pool(seqs: list[str], p: SketchParams, device, mesh=None) -> torc
         parts.extend(h[valid].to(mesh[0]) for h, valid in launched)
     out = torch.cat(parts)
     return out if p.use64 else out & 0xFFFFFFFF
+
+
+def record_stream(paths: list[str], k: int, device) -> tuple[torch.Tensor, int]:
+    """The records of the sequence files ``paths``, in order, as one ``uint8``
+    stream on ``device`` separated by ``k - 1`` NUL bytes, the stream that
+    :func:`_blob` makes of their sequences; and the number of records.
+
+    A plain file's records come from the native reader as one buffer and
+    its offsets (``utils/native.parse_seq_file``), with no Python object a
+    record; ``.gz`` and ``-`` through the Python reader.  The records go to
+    the device back to back, and the separators are put in there by one
+    scatter.  A record shorter than ``k`` stays in: no
+    window that touches it is valid, so the k-mers are those of the stream
+    without it.
+    """
+    from fpmash_tpu_torch.utils.fasta import read_sequences, reader
+
+    data, lengths = [], []
+    for path in paths:
+        if reader(path) == "native":
+            from fpmash_tpu_torch.utils.native import parse_seq_file
+
+            _, _, blob, offsets = parse_seq_file(path)
+            data.append(np.frombuffer(blob, np.uint8))
+            lengths.append(np.diff(offsets))
+        else:
+            seqs = [r.seq.encode("ascii", "replace") for r in read_sequences(path)]
+            data.append(np.frombuffer(b"".join(seqs), np.uint8))
+            lengths.append(np.fromiter(map(len, seqs), np.int64, len(seqs)))
+    data = data[0] if len(data) == 1 else np.concatenate(data)
+    lengths = np.concatenate(lengths) if lengths else np.zeros(0, np.int64)
+    records = len(lengths)
+    body = to_device(data, device)
+    if records <= 1 or k == 1:
+        return body, records
+    ids = torch.repeat_interleave(torch.arange(records, device=body.device),
+                                  to_device(lengths, device), output_size=body.numel())
+    where = ids.mul_(k - 1).add_(torch.arange(body.numel(), device=body.device))
+    stream = torch.zeros(body.numel() + (k - 1) * (records - 1), dtype=torch.uint8,
+                         device=body.device)
+    stream[where] = body
+    return stream, records
 
 
 def _kmer_distinct_counts(seqs: list[str], p: SketchParams, device, mesh=None):
