@@ -20,9 +20,11 @@ the rewrite adds).  Copy of ``fpmash_tpu/commands/screen_cmd.py`` with the
 same flags and output bytes; ``--device`` replaces ``--backend``.
 
 The streaming path keeps the large sets on the device, where the JAX
-package brings them to the host: the reference sketch's hashes go up once,
-as one CSR array (every reference's hashes back to back, and each one's
-count), which gives the distinct count of the ``Loading`` line; the query
+package brings them to the host: the reference sketch is read as columns
+(``utils/msh.read_columns``, no Python object a reference), its file's words
+go up once, and the CSR array (every reference's hashes back to back, and
+each one's count) is gathered from them there; it gives the distinct count of
+the ``Loading`` line; the query
 files become one record stream (``models/sketch.record_stream``), whose
 k-mers are hashed (K7/K8) and counted there, sorted; one ``searchsorted`` of
 every reference hash in the query's distinct values gives the hits, and
@@ -48,10 +50,11 @@ from fpmash_tpu_torch.commands.common import (
     device_and_mesh,
     expand_inputs,
 )
-from fpmash_tpu_torch.models.sketch import Sketch
+from fpmash_tpu_torch.models.sketch import Sketch, SketchParams
 from fpmash_tpu_torch.ops.murmur3 import _SIGN
 from fpmash_tpu_torch.parallel.sharded import to_device, to_host
 from fpmash_tpu_torch.scalar.stats import format_g, screen_pvalue
+from fpmash_tpu_torch.utils.msh import MshColumns, read_columns
 from fpmash_tpu_torch.utils.trace import count, trace
 
 
@@ -88,23 +91,37 @@ def estimate_identity(common: int, denom: int, kmer_size: int) -> float:
 @dataclass
 class _Table:
     """The reference sketch's hashes in CSR form: every reference's hashes
-    back to back (``cat``, on the host; ``keys``, the same on the device,
-    sign-flipped so that signed order is unsigned order), each reference's
-    count of them (``seg_len``) and its length (``lengths``)."""
+    back to back on the device (``keys``, sign-flipped so that signed order
+    is unsigned order), each reference's count of them (``seg_len``) and its
+    length (``lengths``)."""
 
-    cat: np.ndarray
     seg_len: np.ndarray
     lengths: np.ndarray
     keys: torch.Tensor
 
     @classmethod
-    def of(cls, ref: Sketch, device) -> "_Table":
-        refs = ref.references
-        seg_len = np.fromiter((len(r.hashes) for r in refs), np.int64, len(refs))
-        lengths = np.fromiter((r.length for r in refs), np.int64, len(refs))
-        cat = (np.concatenate([np.asarray(r.hashes, np.uint64) for r in refs]) if refs
-               else np.zeros(0, np.uint64))
-        return cls(cat, seg_len, lengths, to_device(cat, device) ^ _SIGN)
+    def of(cls, db: MshColumns, p, device) -> "_Table":
+        """The table of ``db`` under the adopted parameters ``p``: the hash
+        lists of ``p``'s width, each cut to ``p.sketch_size`` as loading a
+        sketch cuts it (Sketch.cpp:1117-1120), gathered on ``device`` from
+        the file's words."""
+        first, n, dtype = db.elements("hashes64" if p.use64 else "hashes32")
+        seg_len = np.minimum(n, p.sketch_size)
+        total = int(seg_len.sum())
+        words = to_device(db.words, device)
+        elems = words if dtype == np.uint64 else words.view(torch.int32)
+        # each key's element: its reference's first element plus its rank there
+        idx = torch.arange(total, device=words.device)
+        idx += torch.repeat_interleave(to_device(first - (np.cumsum(seg_len) - seg_len), device),
+                                       to_device(seg_len, device), output_size=total)
+        keys = elems[idx]
+        if dtype == np.uint32:
+            keys = keys.to(torch.int64) & 0xFFFFFFFF
+        return cls(seg_len, db.lengths.view(np.int64), keys ^ _SIGN)
+
+    def cat(self) -> np.ndarray:
+        """The hashes back to back, on the host."""
+        return to_host(self.keys ^ _SIGN).view(np.uint64)
 
     def distinct(self) -> int:
         """The number of distinct hashes, counted where the keys are."""
@@ -119,20 +136,21 @@ def run(args) -> int:
     # table is kept in CSR form on the device instead (_Table), dissolved
     # into sorted-array operations.
     with trace("screen-load", file=args.reference):
-        ref = Sketch()
-        ref.load_msh(args.reference)
-        table = _Table.of(ref, device)
+        db = read_columns(args.reference)
+        p = SketchParams().adopting(db.header)
+        table = _Table.of(db, p, device)
         set_size = table.distinct()
-        count("references", len(ref.references))
-        count("ref_hashes", len(table.cat))
+        count("references", len(db))
+        count("ref_hashes", table.keys.numel())
         count("bytes", os.path.getsize(args.reference))
+        count("ref_objects", db.objects)
     print(f"Loading {args.reference}...", file=sys.stderr)
     print(f"   {set_size} distinct hashes.", file=sys.stderr)
 
     if args.fingerprint:
         # the fork's rewrite uses the reference table size as setSize
-        return _run_fp_query(args, ref, table, set_size, device)
-    return _run_streaming(args, ref, table, device, mesh)
+        return _run_fp_query(args, p, table, set_size, device)
+    return _run_streaming(args, db, p, table, device, mesh)
 
 
 def _query_counts(args, p, device, mesh):
@@ -229,11 +247,10 @@ def _winners(rid, rank, depth, shared, table: _Table, k: int):
     return rid_o[last], depth[order][last]
 
 
-def _run_streaming(args, ref: Sketch, table: _Table, device, mesh) -> int:
+def _run_streaming(args, db: MshColumns, p, table: _Table, device, mesh) -> int:
     """Upstream semantics: stream all query k-mers; report per reference."""
     from fpmash_tpu_torch.ops.bottomk import estimate_set_size
 
-    p = ref.params
     with trace("screen-query"):
         values, counts = _query_counts(args, p, device, mesh)
     with trace("screen-membership"):
@@ -264,7 +281,6 @@ def _run_streaming(args, ref: Sketch, table: _Table, device, mesh) -> int:
         shown = np.arange(len(shared)) if args.identity < 0.0 else np.flatnonzero(shared)
         lines = 0
         for i in shown.tolist():
-            r = ref.references[i]
             common, denom = int(shared[i]), int(table.seg_len[i])
             identity = estimate_identity(common, denom, p.kmer_size)
             if identity < args.identity:
@@ -274,7 +290,7 @@ def _run_streaming(args, ref: Sketch, table: _Table, device, mesh) -> int:
                 continue
             line = (
                 f"{format_g(identity)}\t{common}/{denom}\t{int(medians[i])}\t{format_g(pv)}"
-                f"\t{r.name}\t{r.comment}"
+                f"\t{db.text('name', i)}\t{db.text('comment', i)}"
             )
             if sat_counts is not None:
                 line += "\t" + ",".join(["0"] * int(sat_counts[i]))
@@ -284,7 +300,7 @@ def _run_streaming(args, ref: Sketch, table: _Table, device, mesh) -> int:
     return 0
 
 
-def _run_fp_query(args, ref: Sketch, table: _Table, set_size, device) -> int:
+def _run_fp_query(args, p, table: _Table, set_size, device) -> int:
     """The fork's sketch-based query path (-fp): one line per query
     reference (CommandScreen.cpp:116-257).
 
@@ -295,11 +311,10 @@ def _run_fp_query(args, ref: Sketch, table: _Table, set_size, device) -> int:
     streaming path; CommandScreen.cpp:81-102 builds a hash table for
     exactly this reason).
     """
-    p = ref.params
     qry = Sketch(p)
     qry.init_from_fingerprints(expand_inputs(args.queries, False), device=device)
 
-    universe = np.unique(table.cat)
+    universe = np.unique(table.cat())
     seg_len = np.array([len(q.hashes) for q in qry.references], np.int64)
     ends = np.cumsum(seg_len)
     cat = (

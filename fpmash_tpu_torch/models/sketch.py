@@ -105,6 +105,23 @@ class SketchParams:
         """alphabetSize^kmerSize (Sketch.cpp:660)."""
         return float(len(self.alphabet)) ** self.kmer_size
 
+    def adopting(self, m) -> "SketchParams":
+        """These parameters with those of the ``.msh`` header ``m`` (an
+        ``utils.msh.MshFile``), as loading a sketch adopts them."""
+        return replace(
+            self,
+            kmer_size=m.kmer_size,
+            sketch_size=m.min_hashes_per_window,
+            seed=m.hash_seed,
+            noncanonical=m.noncanonical,
+            preserve_case=m.preserve_case,
+            alphabet=m.alphabet,
+            concatenated=m.concatenated,
+            error=m.error,
+            window_size=m.window_size,
+            windowed=bool(m.loci) or m.window_size > 0,
+        )
+
     def for_fingerprint(self) -> "SketchParams":
         """Fingerprint-mode overrides (sketchParameterSetup.cpp:78-84):
         k=1, noncanonical, alphabet '0123456789' (=> 32-bit hashes)."""
@@ -422,19 +439,7 @@ class Sketch:
         from fpmash_tpu_torch.utils.msh import read_msh
 
         m = read_msh(path)
-        self.params = replace(
-            self.params,
-            kmer_size=m.kmer_size,
-            sketch_size=m.min_hashes_per_window,
-            seed=m.hash_seed,
-            noncanonical=m.noncanonical,
-            preserve_case=m.preserve_case,
-            alphabet=m.alphabet,
-            concatenated=m.concatenated,
-            error=m.error,
-            window_size=m.window_size,
-            windowed=bool(m.loci) or m.window_size > 0,
-        )
+        self.params = self.params.adopting(m)
         base = len(self.references)
         self.loci.extend((base + int(s), int(pos), int(h)) for s, pos, h in m.loci)
         cap = self.params.sketch_size

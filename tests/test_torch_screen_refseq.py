@@ -37,6 +37,7 @@ PARAMS = {"kmer": K, "sketch_size": S, "hash_seed": SEED, "references": 300, "ge
           "divergence": [0.01, 0.05], "distractor_length": [1000000, 10000000], "read_sets": 1,
           "reads": 20000, "read_length": 150, "substitution": 0.01, "present": 5,
           "abundance_sigma": 1.0, "quality": "I"}
+BIG, CUT = 3000, 700  # references of the largest database; the sketch size of one that cuts
 
 
 @pytest.fixture(scope="module")
@@ -59,8 +60,32 @@ def world(tmp_path_factory):
     (d / "ties.msh").write_bytes(msh_bytes(kmer=K, sketch_size=S, seed=SEED, alphabet="ACGT",
                                            canonical=True, names=names, comments=comments,
                                            lengths=lengths, hashes=hashes, seg_len=seg_len))
+    # a few thousand references: the database and drawn bottom-s sketches
+    _, more = spec.module("generators", "metagenome")._distractors(
+        np.random.default_rng(7), BIG - len(db.headers), S, PARAMS["distractor_length"])
+    big = (db.headers + [f"drawn{j}" for j in range(len(more))],
+           db.comments + ["drawn sketch"] * len(more),
+           np.append(db.lengths, np.full(len(more), 5000000)),
+           np.concatenate([db.hashes, more.ravel()]),
+           np.append(db.seg_len, np.full(len(more), S)))
+    names_b, comments_b, lengths_b, hashes_b, seg_len_b = big
+    (d / "big.msh").write_bytes(msh_bytes(kmer=K, sketch_size=S, seed=SEED, alphabet="ACGT",
+                                          canonical=True, names=names_b, comments=comments_b,
+                                          lengths=lengths_b, hashes=hashes_b,
+                                          seg_len=seg_len_b))
+    # lists longer than the header's sketch size: loading cuts each to it
+    (d / "trunc.msh").write_bytes(msh_bytes(kmer=K, sketch_size=CUT, seed=SEED, alphabet="ACGT",
+                                            canonical=True, names=db.headers,
+                                            comments=db.comments, lengths=db.lengths,
+                                            hashes=db.hashes, seg_len=db.seg_len))
+    cut = np.minimum(db.seg_len, CUT)
+    cut_hashes = np.concatenate([db.hashes[a : a + c] for a, c in zip(starts, cut)])
     (rows,) = reads.seqs
     return {
+        "big.msh": ref_screen.database(hashes_b, seg_len_b, lengths_b, names_b, comments_b,
+                                       64, CPU),
+        "trunc.msh": ref_screen.database(cut_hashes, cut, db.lengths, db.headers, db.comments,
+                                         64, CPU),
         "dir": d,
         "refseq.msh": ref_screen.database(db.hashes, db.seg_len, db.lengths, db.headers,
                                           db.comments, 64, CPU),
@@ -80,16 +105,16 @@ def _port(argv) -> str:
 @pytest.mark.parametrize("db,opts", [
     ("refseq.msh", []), ("refseq.msh", ["-w"]), ("refseq.msh", ["-i", "0.85"]),
     ("refseq.msh", ["-v", "1e-40"]), ("refseq.msh", ["-w", "-i", "0.8", "-v", "1e-20"]),
-    ("ties.msh", ["-w"]), ("ties.msh", []),
+    ("ties.msh", ["-w"]), ("ties.msh", []), ("trunc.msh", ["-w"]), ("trunc.msh", []),
 ], ids=["plain", "winner", "identity", "pvalue", "winner-identity-pvalue", "ties-winner",
-        "ties-plain"])
+        "ties-plain", "trunc-winner", "trunc-plain"])
 def test_screen_matches_the_plain_reference(world, db, opts):
     got = screen_lines.parse(_port(["screen", *opts, str(world["dir"] / db),
                                     str(world["reads"])]).encode())
     ident = float(opts[opts.index("-i") + 1]) if "-i" in opts else 0.0
     pval = float(opts[opts.index("-v") + 1]) if "-v" in opts else 1.0
-    want = ref_screen.screen(world[db], world["query"], K, S, winner="-w" in opts,
-                             min_identity=ident, max_pvalue=pval)
+    want = ref_screen.screen(world[db], world["query"], K, CUT if db == "trunc.msh" else S,
+                             winner="-w" in opts, min_identity=ident, max_pvalue=pval)
     assert len(want) >= 3
     assert [g[0] for g in got] == [w[0] for w in want]
     for g, w in zip(got, want):
@@ -105,8 +130,9 @@ def test_screen_matches_the_plain_reference(world, db, opts):
 
 
 @pytest.mark.parametrize("db,opts", [("refseq.msh", ["-w"]), ("ties.msh", ["-w", "-s"]),
-                                     ("ties.msh", ["-i", "0.9"])],
-                         ids=["winner", "ties-winner-saturation", "ties-identity"])
+                                     ("ties.msh", ["-i", "0.9"]), ("trunc.msh", ["-w"])],
+                         ids=["winner", "ties-winner-saturation", "ties-identity",
+                              "trunc-winner"])
 def test_screen_matches_jax_byte_for_byte(world, db, opts):
     from fpmash_tpu.cli import main as jax_main
 
@@ -176,3 +202,33 @@ def test_membership_brings_back_counts_and_hits_alone(world, monkeypatch):
     assert member.counters["d2h_bytes"] == 8 * (refs + 3 * hits + S)
     assert 0 < spans["screen-winner"].counters["winners"] == spans["screen-lines"].counters["lines"]
     assert max(sizes, default=0) < ref_hashes
+
+
+def test_screen_loads_the_database_as_columns(world, monkeypatch):
+    """``screen -w`` of a database of a few thousand references builds no
+    ``MshReference`` and no ``Reference`` (both raise here), counts 0
+    ``ref_objects`` on ``screen-load``, reads the file in an ``msh-read``
+    span inside it, and prints the plain reference's lines."""
+    from fpmash_tpu_torch.utils import msh as port_msh
+
+    def built(*args, **kwargs):
+        raise AssertionError("a per-reference object was built")
+
+    monkeypatch.setattr(port_msh.MshReference, "__init__", built)
+    monkeypatch.setattr(port_sketch.Reference, "__init__", built)
+    with pytest.raises(AssertionError, match="per-reference"):
+        port_msh.read_msh(str(world["dir"] / "big.msh"))
+    monkeypatch.setattr(port_trace, "_ENABLED", True)
+    port_trace.clear()
+    out = _port(["screen", "-w", str(world["dir"] / "big.msh"), str(world["reads"])])
+    spans = port_trace.spans()
+    port_trace.clear()
+    (load,) = [s for s in spans if s.name == "screen-load"]
+    (read,) = [s for s in spans if s.name == "msh-read"]
+    assert read.parent == load.id and load.start <= read.start <= read.end <= load.end
+    assert load.counters["ref_objects"] == 0
+    assert load.counters["references"] == BIG and load.counters["ref_hashes"] == BIG * S
+    got = screen_lines.parse(out.encode())
+    want = ref_screen.screen(world["big.msh"], world["query"], K, S, winner=True)
+    assert len(want) >= 3
+    assert [g[:5] for g in got] == [w[:5] for w in want]
