@@ -1658,7 +1658,7 @@ def _write_sketch(path: Path, lists, params: dict, length: int) -> None:
 def phase_config4(dev, rng, work: Path):
     """BASELINE config 4 on one card: all-pairs distance over 10 000 classic
     sketches (k = 21, s = 1000).  With the counts set to 0 just before and
-    read just after: ``ops/compare.all_pairs_common_denom`` over all 10^8
+    read just after: ``models/distance.all_pairs_common_denom`` over all 10^8
     pairs (K9), and through the CLI ``dist refs.msh qrys.msh`` (10 000 x 100
     sketches), ``triangle`` over 1 000 of them and ``triangle -fp`` over
     1 000 fingerprint sketches (positional).  Then every one of the 10^8
@@ -1675,9 +1675,10 @@ def phase_config4(dev, rng, work: Path):
     import torch
 
     from fpmash_tpu_torch.cli import main
+    from fpmash_tpu_torch.models import distance
     from fpmash_tpu_torch.models.distance import compare_fingerprints, compare_sketches
     from fpmash_tpu_torch.models.sketch import Sketch, SketchParams
-    from fpmash_tpu_torch.ops import compare, compare_cuda, walk, walk_cuda
+    from fpmash_tpu_torch.ops import compare_cuda, walk_cuda
     from fpmash_tpu_torch.ops.walk import pad_lists
     from fpmash_tpu_torch.scalar.stats import format_g
 
@@ -1706,7 +1707,7 @@ def phase_config4(dev, rng, work: Path):
     walls = {}
     _reset_counts()
     t0 = time.perf_counter()
-    common, denom = compare.all_pairs_common_denom(refs, refs, SKETCH, device=dev)
+    common, denom = distance.all_pairs_common_denom(refs, refs, SKETCH, devices=(dev,))
     walls["all_pairs_common_denom"] = time.perf_counter() - t0
     for name, argv in commands.items():
         t0 = time.perf_counter()
@@ -1722,7 +1723,7 @@ def phase_config4(dev, rng, work: Path):
                              f"{launches}")
 
     t0 = time.perf_counter()
-    walk_c, walk_d = walk.all_pairs_walk(refs, refs, SKETCH, device=dev)
+    walk_c, walk_d = distance.all_pairs_walk(refs, refs, SKETCH, devices=(dev,))
     if not (np.array_equal(common, walk_c) and np.array_equal(denom, walk_d)):
         bad = int(((common != walk_c) | (denom != walk_d)).sum())
         raise AssertionError(f"K9 differs from K2's walk in {bad} of the {N_ALL ** 2} pairs")
@@ -1768,7 +1769,7 @@ def phase_config4(dev, rng, work: Path):
     t0 = time.perf_counter()
     ref, ref_len = pad_lists(refs, dev)
     qry, qry_len = pad_lists(lists[N_ALL:], dev)
-    rows = compare._TILE_PAIRS // N_ALL
+    rows = distance._TILE_PAIRS // N_ALL
     pick = np.sort(np.concatenate([rng.choice(rows, 32, replace=False),
                                    rows + rng.choice(N_ALL - rows, 32, replace=False)]))
     sel = torch.from_numpy(pick).to(dev)
@@ -1902,10 +1903,15 @@ def phase_multi_device(dev, rng, work: Path, config4: dict, seqs_a):
 
     from fpmash_tpu_torch.cli import main
     from fpmash_tpu_torch.models import sketch as sketch_mod
-    from fpmash_tpu_torch.models.distance import all_pairs_dist, common_denom
+    from fpmash_tpu_torch.models.distance import (
+        all_pairs_common_denom,
+        all_pairs_dist,
+        all_pairs_positional,
+        common_denom,
+    )
     from fpmash_tpu_torch.models.fingerprint import extract_reads
     from fpmash_tpu_torch.models.sketch import Sketch, SketchParams
-    from fpmash_tpu_torch.ops import compare, fused_cuda, walk_cuda
+    from fpmash_tpu_torch.ops import fused_cuda, walk_cuda
     from fpmash_tpu_torch.ops.walk import pad_lists
     from fpmash_tpu_torch.parallel import sharded
     from fpmash_tpu_torch.utils.fasta import read_sequences
@@ -1944,8 +1950,7 @@ def phase_multi_device(dev, rng, work: Path, config4: dict, seqs_a):
             before = _launches()
             t0 = time.perf_counter()
             sk = Sketch(params)
-            sk.init_from_sequences(records, name=str(out / "reads.fq"), merge=True, device=dev,
-                                   mesh=m)
+            sk.init_from_sequences(records, name=str(out / "reads.fq"), merge=True, devices=m)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             path = out / f"{tag}_{shards}.msh"
@@ -1968,9 +1973,9 @@ def phase_multi_device(dev, rng, work: Path, config4: dict, seqs_a):
     genomes.load_msh(str(work / "classic" / "genomes.msh"))
     reads.load_msh(str(sketches["sketch -r -m 2", N_SHARDS]))
     lists = ([r.hashes for r in genomes.references], [r.hashes for r in reads.references])
-    _check_same("config 5 dist", common_denom(*lists, 1000, device=dev, mesh=mesh),
-                common_denom(*lists, 1000, device=dev))
-    dists = [res.distance for _, _, res in all_pairs_dist(genomes, reads, device=dev, mesh=mesh)]
+    _check_same("config 5 dist", common_denom(*lists, 1000, devices=mesh),
+                common_denom(*lists, 1000, devices=(dev,)))
+    dists = [res.distance for _, _, res in all_pairs_dist(genomes, reads, devices=mesh)]
     if not dists[0] < dists[1] < dists[2]:
         raise AssertionError(f"config 5 reads of g1 should be nearest g1, then g2, g3: {dists}")
     print(f"multi-device: config 5: both sketches byte-identical on 1 and {N_SHARDS} shards; "
@@ -1984,7 +1989,7 @@ def phase_multi_device(dev, rng, work: Path, config4: dict, seqs_a):
             sk = Sketch(SketchParams().for_fingerprint())
             sk.init_from_reads_fingerprint(extract_reads(str(work / family / f"{tag}.fasta"),
                                                          rev_com=True),
-                                           family, device=dev, mesh=mesh)
+                                           family, devices=mesh)
             path = work / family / f"{tag}_sharded.msh"
             sk.write_msh(str(path))
             if path.read_bytes() != (work / family / f"{tag}.msh").read_bytes():
@@ -2001,19 +2006,18 @@ def phase_multi_device(dev, rng, work: Path, config4: dict, seqs_a):
 
     # 3. config 4
     t0 = time.perf_counter()
-    got = compare.all_pairs_common_denom(config4["refs"], config4["refs"], SKETCH, device=dev,
-                                         mesh=mesh)
+    got = all_pairs_common_denom(config4["refs"], config4["refs"], SKETCH, devices=mesh)
     wall = time.perf_counter() - t0
     _check_same("config 4 all pairs", got, (config4["common"], config4["denom"]))
     del got
     refs, tri = config4["refs"], config4["refs"][:N_TRI]
-    _check_same("config 4 dist", common_denom(refs, config4["qrys"], SKETCH, device=dev, mesh=mesh),
-                common_denom(refs, config4["qrys"], SKETCH, device=dev))
-    _check_same("config 4 triangle", common_denom(tri, tri, SKETCH, device=dev, mesh=mesh),
-                common_denom(tri, tri, SKETCH, device=dev))
+    _check_same("config 4 dist", common_denom(refs, config4["qrys"], SKETCH, devices=mesh),
+                common_denom(refs, config4["qrys"], SKETCH, devices=(dev,)))
+    _check_same("config 4 triangle", common_denom(tri, tri, SKETCH, devices=mesh),
+                common_denom(tri, tri, SKETCH, devices=(dev,)))
     _check_same("config 4 triangle -fp",
-                compare.all_pairs_positional(config4["fp"], device=dev, mesh=mesh),
-                compare.all_pairs_positional(config4["fp"], device=dev))
+                all_pairs_positional(config4["fp"], devices=mesh),
+                all_pairs_positional(config4["fp"], devices=(dev,)))
     print(f"multi-device: config 4: K9 over all {N_ALL ** 2} pairs on {N_SHARDS} shards equals "
           f"phase_config4's result ({wall:.3f} s wall); dist {N_ALL} x {N_QRY}, triangle and "
           f"triangle -fp over {N_TRI} equal one device's")
@@ -2030,8 +2034,8 @@ def phase_multi_device(dev, rng, work: Path, config4: dict, seqs_a):
     if walk_cuda.LAUNCHES - before != N_SHARDS:
         raise AssertionError("sharded_all_pairs_walk did not launch K2 once a shard")
     _check_same("dist -fp (sharded_all_pairs_walk)", got, walk_cuda.pairwise_walk(*args))
-    _check_same("dist -fp (route)", common_denom(*lists, s, device=dev, mesh=mesh),
-                common_denom(*lists, s, device=dev))
+    _check_same("dist -fp (route)", common_denom(*lists, s, devices=mesh),
+                common_denom(*lists, s, devices=(dev,)))
     print(f"multi-device: dist -fp a.msh b.msh ({len(lists[0])} x {len(lists[1])}) through "
           f"sharded_all_pairs_walk and the route on {N_SHARDS} shards equals one device's")
 
@@ -2400,7 +2404,7 @@ def phase_windowed_find(dev, rng, work: Path):
     import torch
 
     from fpmash_tpu_torch.cli import main
-    from fpmash_tpu_torch.models.sketch import Sketch, SketchParams, _position_hashes
+    from fpmash_tpu_torch.models.sketch import Sketch, SketchParams, position_hashes
     from fpmash_tpu_torch.ops import winnow as winnow_mod
     from fpmash_tpu_torch.ops.murmur3 import murmur3_bytes_batch
     from fpmash_tpu_torch.ops.winnow import (
@@ -2498,7 +2502,7 @@ def phase_windowed_find(dev, rng, work: Path):
                      windowed=True)
     raw = plasmid.tobytes()
     scalar = [hash_bytes(raw[i : i + FIND_K]) for i in range(PLASMID_LEN - FIND_K + 1)]
-    if _position_hashes(raw, p, dev).cpu().numpy().view(np.uint64).tolist() != scalar:
+    if position_hashes(raw, p, dev).cpu().numpy().view(np.uint64).tolist() != scalar:
         raise AssertionError("the plasmid's position hashes differ from the scalar murmur")
     sk = Sketch()
     sk.load_msh(str(out / "ref.msw"))
@@ -2516,7 +2520,7 @@ def phase_windowed_find(dev, rng, work: Path):
     checks = time.perf_counter() - t0
 
     ws, mins = FIND_WINDOW, FIND_MINS
-    hc = _position_hashes(lut[chrom].tobytes(), p, dev)
+    hc = position_hashes(lut[chrom].tobytes(), p, dev)
     prev = prev_occurrence(hc)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2568,8 +2572,8 @@ def phase_windowed_find(dev, rng, work: Path):
     # window clamped to its positions: one start) and the plasmid at -k 16
     raw16 = SketchParams(kmer_size=16, sketch_size=10, window_size=1000, windowed=True)
     for key, hx, wx, mx in (
-            ("query", _position_hashes(lut[reads[0]].tobytes(), p, dev), None, mins),
-            ("plasmid_k16", _position_hashes(raw, raw16, dev), raw16.window_size,
+            ("query", position_hashes(lut[reads[0]].tobytes(), p, dev), None, mins),
+            ("plasmid_k16", position_hashes(raw, raw16, dev), raw16.window_size,
              raw16.sketch_size)):
         wx = min(wx or ws, hx.numel())
         px = prev_occurrence(hx)

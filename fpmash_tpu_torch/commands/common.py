@@ -4,8 +4,8 @@ The sketch options are those of ``fpmash_tpu/commands/common.py``
 (``Command::useSketchOptions``, Command.cpp:183-228), with the same
 identifiers and defaults, and the parameter setup follows
 sketchParameterSetup.cpp:9-106, including the fingerprint, protein and
-alphabet overrides, and the windowed ones of ``-W``.  ``--device`` also
-names the mesh of the sharded routes (:func:`device_and_mesh`).
+alphabet overrides, and the windowed ones of ``-W``.  ``--device`` becomes
+devices in ``device.resolve_devices``.
 """
 
 from __future__ import annotations
@@ -14,7 +14,6 @@ import argparse
 import sys
 from dataclasses import replace
 
-from fpmash_tpu_torch.device import resolve_device
 from fpmash_tpu_torch.models.sketch import SketchParams
 
 ALPHABET_PROTEIN = "ACDEFGHIKLMNPQRSTVWY"
@@ -53,17 +52,6 @@ def add_device_option(parser: argparse.ArgumentParser) -> None:
         "at most FPMASH_DEVICES of them; an error if no card is usable), cuda:N "
         "(card N alone) or cpu (the kernels' plain PyTorch versions). [cuda]",
     )
-
-
-def device_and_mesh(name: str):
-    """``--device``'s ``torch.device``, and the mesh that the sharded routes
-    run on (``parallel/sharded.visible_devices``: the first
-    ``FPMASH_DEVICES`` cards for ``cuda``, by default all; else the device
-    alone).  On one card, or on the CPU, the mesh is that one device."""
-    from fpmash_tpu_torch.parallel import sharded
-
-    device = resolve_device(name)
-    return device, sharded.visible_devices(device)
 
 
 def parse_size(text: str | None) -> int:

@@ -14,11 +14,11 @@ import sys
 
 from fpmash_tpu_torch.commands.common import (
     add_device_option,
-    device_and_mesh,
     add_sketch_options,
     expand_inputs,
     sketch_params_from_args,
 )
+from fpmash_tpu_torch import device as placement
 from fpmash_tpu_torch.models.distance import contain_sketches
 from fpmash_tpu_torch.models.sketch import Sketch
 from fpmash_tpu_torch.scalar.stats import format_g
@@ -42,12 +42,12 @@ def add_parser(sub):
 
 
 def run(args) -> int:
-    device, mesh = device_and_mesh(args.device)
+    devices = placement.resolve_devices(args.device)
     ref = Sketch(sketch_params_from_args(args))
-    ref.init_from_files([args.reference], device=device, mesh=mesh)
+    ref.init_from_files([args.reference], devices=devices)
     qry = Sketch(ref.params)
     qry.init_from_files(expand_inputs(args.queries, args.list), individual=args.individual,
-                        device=device, mesh=mesh)
+                        devices=devices)
     for msg in ref.check_compatible(qry):
         print(f"WARNING: {msg}", file=sys.stderr)
 

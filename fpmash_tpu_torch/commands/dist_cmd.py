@@ -18,11 +18,11 @@ import sys
 
 from fpmash_tpu_torch.commands.common import (
     add_device_option,
-    device_and_mesh,
     add_sketch_options,
     expand_inputs,
     sketch_params_from_args,
 )
+from fpmash_tpu_torch import device as placement
 from fpmash_tpu_torch.models.distance import all_pairs_dist
 from fpmash_tpu_torch.models.sketch import Sketch
 from fpmash_tpu_torch.scalar.stats import format_g
@@ -49,7 +49,7 @@ def add_parser(sub):
     return p
 
 
-def load_ref_and_queries(args, device, mesh=None):
+def load_ref_and_queries(args, devices):
     params = sketch_params_from_args(args, fingerprint=args.fingerprint)
     ref_is_msh = _contains([args.reference], ".msh")
 
@@ -58,14 +58,13 @@ def load_ref_and_queries(args, device, mesh=None):
         # extension sniffing quirk: driven by the REFERENCE argument only
         if args.fingerprint and _contains(paths, ".msh" if ref_is_msh else ".txt"):
             if ref_is_msh:
-                sk.init_from_files(paths, individual=args.individual, device=device,
-                                   mesh=mesh)
+                sk.init_from_files(paths, individual=args.individual, devices=devices)
             else:
-                sk.init_from_fingerprints(paths, device=device)
+                sk.init_from_fingerprints(paths, device=devices[0])
         elif args.fingerprint:
-            sk.init_from_fingerprints(paths, device=device)
+            sk.init_from_fingerprints(paths, device=devices[0])
         else:
-            sk.init_from_files(paths, individual=args.individual, device=device, mesh=mesh)
+            sk.init_from_files(paths, individual=args.individual, devices=devices)
         return sk
 
     ref = load([args.reference])
@@ -84,15 +83,14 @@ def _contains(paths, suffix) -> bool:
 
 
 def run(args) -> int:
-    device, mesh = device_and_mesh(args.device)
+    devices = placement.resolve_devices(args.device)
     with trace("load-sketches"):
-        ref, qry = load_ref_and_queries(args, device, mesh)
+        ref, qry = load_ref_and_queries(args, devices)
     with trace("distances", pairs=len(ref) * len(qry)):
         results = {
             (ri, qi): res
             for ri, qi, res in all_pairs_dist(
-                ref, qry, max_distance=args.distance, max_pvalue=args.pvalue, device=device,
-                mesh=mesh,
+                ref, qry, max_distance=args.distance, max_pvalue=args.pvalue, devices=devices,
             )
         }
 

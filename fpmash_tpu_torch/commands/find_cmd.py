@@ -25,8 +25,8 @@ from functools import cmp_to_key
 import numpy as np
 
 from fpmash_tpu_torch.commands.common import add_device_option
-from fpmash_tpu_torch.device import resolve_device
-from fpmash_tpu_torch.models.sketch import Sketch, SketchParams, _position_hashes
+from fpmash_tpu_torch import device as placement
+from fpmash_tpu_torch.models.sketch import Sketch, SketchParams, position_hashes
 from fpmash_tpu_torch.scalar.stats import format_g
 from fpmash_tpu_torch.utils.trace import trace
 
@@ -73,7 +73,7 @@ def run(args) -> int:
             file=sys.stderr,
         )
         return 1
-    device = resolve_device(args.device)
+    devices = placement.resolve_devices(args.device)
 
     sketch = Sketch()
     if ref_path.endswith(".msw"):
@@ -99,7 +99,7 @@ def run(args) -> int:
         )
         print(f"Sketching {ref_path} (provide a .msw sketch to skip)...", file=sys.stderr)
         sketch = Sketch(params)
-        sketch.init_from_files([ref_path], device=device)
+        sketch.init_from_files([ref_path], devices=devices)
 
     from fpmash_tpu_torch.utils.fasta import read_sequences
 
@@ -109,7 +109,7 @@ def run(args) -> int:
             if len(rec.seq) < k:
                 continue
             with trace("find-query", bases=len(rec.seq)):
-                _find_query(sketch, rec.name, rec.seq, args, device)
+                _find_query(sketch, rec.name, rec.seq, args, devices[0])
     return 0
 
 
@@ -127,7 +127,7 @@ def _find_query(sketch: Sketch, qname: str, qseq: str, args, device) -> None:
     hits: list[tuple] = []  # (ref, start, end, minus, score_f32)
     for minus in (False, True):
         strand = _rev_comp_acgt(seq) if minus else seq
-        ph = _position_hashes(strand, p, device)
+        ph = position_hashes(strand, p, device)
         if ph.numel() == 0:
             continue
         _, mh = minmer_positions(ph, p.window_size, p.sketch_size, device=device)

@@ -20,7 +20,7 @@ import os
 import sys
 
 from fpmash_tpu_torch.commands.common import add_device_option
-from fpmash_tpu_torch.device import resolve_device
+from fpmash_tpu_torch import device as placement
 from fpmash_tpu_torch.ops.factorize import plan
 
 
@@ -86,7 +86,7 @@ def run_fingerprint(args) -> int:
         fingerprint_reads,
     )
 
-    device = resolve_device(args.device)
+    device = placement.resolve_devices(args.device)[0]
     plan(args.type_factorization)  # an unknown family fails before any work
     fasta = os.path.join(args.path, args.fasta) if args.path else args.fasta
     rev = args.rev_comb == "true"

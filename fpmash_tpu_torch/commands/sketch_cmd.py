@@ -16,11 +16,11 @@ from dataclasses import replace
 
 from fpmash_tpu_torch.commands.common import (
     add_device_option,
-    device_and_mesh,
     add_sketch_options,
     expand_inputs,
     sketch_params_from_args,
 )
+from fpmash_tpu_torch import device as placement
 from fpmash_tpu_torch.models.sketch import Sketch
 from fpmash_tpu_torch.utils.trace import trace
 
@@ -50,7 +50,7 @@ def add_parser(sub):
 
 
 def run(args) -> int:
-    device, mesh = device_and_mesh(args.device)
+    devices = placement.resolve_devices(args.device)
     files = expand_inputs(args.inputs, args.list)
 
     if args.direct_fp:
@@ -62,7 +62,7 @@ def run(args) -> int:
             for f in files:
                 reads.extend(extract_reads(f, rev_com=args.rev_comb == "true"))
         sketch.init_from_reads_fingerprint(
-            reads, args.factorization, shift=args.shift == "shift", device=device, mesh=mesh
+            reads, args.factorization, shift=args.shift == "shift", devices=devices
         )
         prefix = args.prefix or files[0]
         out = prefix if prefix.endswith(".msh") else prefix + ".msh"
@@ -75,12 +75,11 @@ def run(args) -> int:
         params = replace(params, counts=True)
     sketch = Sketch(params)
     if args.fingerprint:
-        sketch.init_from_fingerprints(files, device=device)
+        sketch.init_from_fingerprints(files, device=devices[0])
     elif params.reads:
-        sketch.init_from_reads(files, device=device, mesh=mesh)
+        sketch.init_from_reads(files, devices=devices)
     else:
-        sketch.init_from_files(files, individual=args.individual, device=device,
-                                mesh=mesh)
+        sketch.init_from_files(files, individual=args.individual, devices=devices)
     if args.id is not None and sketch.references:
         sketch.references[0].name = args.id
     if args.comment is not None and sketch.references:

@@ -4,9 +4,11 @@
 Reference taxIDs come from a ``-m`` mapping file (``taxID<TAB>refName``
 lines) or a ``taxid <N>`` token in each reference's comment; each shared
 hash is assigned the LCA of the references containing it; counts roll up
-the taxonomy and print as a Kraken report.  The pool's k-mers are hashed
-and counted on ``--device`` (``models/sketch._kmer_distinct_counts``: K7 or
-K8, then the distinct values and their counts).  Flags, defaults and output
+the taxonomy and print as a Kraken report.  The pool files become one
+record stream (``models/sketch.record_stream``), whose k-mers are hashed
+and counted on ``--device`` (``models/sketch.distinct_kmer_counts``, the
+query side of ``screen``: K7 or K8, then the distinct values and their
+counts).  Flags, defaults and output
 bytes are those of ``python -m fpmash_tpu taxscreen``; ``--device`` replaces
 ``--backend``.
 """
@@ -17,8 +19,12 @@ import os
 import sys
 from collections import defaultdict
 
-from fpmash_tpu_torch.commands.common import add_device_option, device_and_mesh
-from fpmash_tpu_torch.models.sketch import Sketch, _kmer_distinct_counts
+import numpy as np
+
+from fpmash_tpu_torch import device as placement
+from fpmash_tpu_torch.commands.common import add_device_option
+from fpmash_tpu_torch.device import to_host
+from fpmash_tpu_torch.models.sketch import Sketch, distinct_kmer_counts, record_stream
 from fpmash_tpu_torch.utils.taxdb import TaxCounts, TaxDB
 
 
@@ -40,7 +46,7 @@ def add_parser(sub):
 
 
 def run(args) -> int:
-    device, mesh = device_and_mesh(args.device)
+    devices = placement.resolve_devices(args.device)
     names = os.path.join(args.taxonomy_dir, "names.dmp")
     nodes = os.path.join(args.taxonomy_dir, "nodes.dmp")
     if not (os.path.exists(names) and os.path.exists(nodes)):
@@ -56,7 +62,7 @@ def run(args) -> int:
     ref = Sketch()
     if args.fingerprint:
         ref.params = ref.params.for_fingerprint()
-        ref.init_from_fingerprints([args.queries], device=device)
+        ref.init_from_fingerprints([args.queries], device=devices[0])
     else:
         if not args.queries.endswith(".msh"):
             print(f"ERROR: {args.queries} does not look like a sketch (.msh)", file=sys.stderr)
@@ -101,18 +107,12 @@ def run(args) -> int:
     print(f"   {len(hash_table)} distinct hashes.", file=sys.stderr)
 
     # stream pool k-mers
-    from fpmash_tpu_torch.utils.fasta import read_sequences
-
-    seqs = []
-    for path in args.pool:
-        for rec in read_sequences(path):
-            if len(rec.seq) >= p.kmer_size:
-                seqs.append(rec.seq)
-    if not seqs:
+    stream, lengths = record_stream(args.pool, p.kmer_size, devices[0])
+    if not (lengths >= p.kmer_size).any():
         print("\nERROR: Did not find sequence records in inputs", file=sys.stderr)
         return 1
-    values, vcounts = _kmer_distinct_counts(seqs, p, device, mesh)
-    pool_count = dict(zip(values.tolist(), vcounts.tolist()))
+    values, vcounts = distinct_kmer_counts(stream, lengths, p, devices)
+    pool_count = dict(zip(to_host(values).view(np.uint64).tolist(), to_host(vcounts).tolist()))
 
     min_cov = 1
     counts: dict[int, TaxCounts] = defaultdict(TaxCounts)

@@ -27,13 +27,14 @@ import numpy as np
 
 from fpmash_tpu_torch.commands.common import (
     add_device_option,
-    device_and_mesh,
     add_sketch_options,
     expand_inputs,
     sketch_params_from_args,
 )
+from fpmash_tpu_torch import device as placement
 from fpmash_tpu_torch.models.distance import (
     PairResult,
+    all_pairs_positional,
     common_denom,
     pair_distance,
     pair_result,
@@ -61,12 +62,10 @@ def add_parser(sub):
     return p
 
 
-def _positional_results(hashes, edge: bool, max_d: float, max_p: float, device, mesh):
+def _positional_results(hashes, edge: bool, max_d: float, max_p: float, devices):
     """``result(i, j)`` of the positional comparison for every pair."""
-    from fpmash_tpu_torch.ops.compare import all_pairs_positional
-
     with trace("all-pairs-positional", pairs=len(hashes) ** 2):
-        matches, minlen = all_pairs_positional(hashes, device=device, mesh=mesh)
+        matches, minlen = all_pairs_positional(hashes, devices=devices)
     distance = np.where(minlen > 0, 1.0 - matches / np.maximum(minlen, 1), 1.0)
     pvalue = chisq_sf(matches, 1) if edge else None
 
@@ -81,11 +80,11 @@ def _positional_results(hashes, edge: bool, max_d: float, max_p: float, device, 
     return result
 
 
-def _merge_results(sk: Sketch, edge: bool, max_d: float, max_p: float, device, mesh):
+def _merge_results(sk: Sketch, edge: bool, max_d: float, max_p: float, devices):
     """``result(i, j)`` of the merge-join comparison for every pair."""
     p = sk.params
     hashes = [r.hashes for r in sk.references]
-    common, denom = common_denom(hashes, hashes, p.sketch_size, device=device, mesh=mesh)
+    common, denom = common_denom(hashes, hashes, p.sketch_size, devices=devices)
 
     def result(i, j):
         c, d = int(common[i, j]), int(denom[i, j])
@@ -98,7 +97,7 @@ def _merge_results(sk: Sketch, edge: bool, max_d: float, max_p: float, device, m
 
 
 def run(args) -> int:
-    device, mesh = device_and_mesh(args.device)
+    devices = placement.resolve_devices(args.device)
     edge = args.edge or args.pvalue is not None or args.distance is not None
     max_p = args.pvalue if args.pvalue is not None else 1.0
     max_d = args.distance if args.distance is not None else 1.0
@@ -112,16 +111,16 @@ def run(args) -> int:
     other_inputs = [f for f in files if not f.endswith(".txt")]
     with trace("load-sketches"):
         if args.fingerprint and txt_inputs:
-            sk.init_from_fingerprints(txt_inputs, device=device)
+            sk.init_from_fingerprints(txt_inputs, device=devices[0])
         if other_inputs:
-            sk.init_from_files(other_inputs, individual=individual, device=device, mesh=mesh)
+            sk.init_from_files(other_inputs, individual=individual, devices=devices)
 
     n = len(sk.references)
     if args.fingerprint:
         result = _positional_results([r.hashes for r in sk.references], edge, max_d, max_p,
-                                     device, mesh)
+                                     devices)
     else:
-        result = _merge_results(sk, edge, max_d, max_p, device, mesh)
+        result = _merge_results(sk, edge, max_d, max_p, devices)
 
     with trace("format-lines", pairs=n * (n - 1) // 2):
         _write(sk, result, edge, args.comment)

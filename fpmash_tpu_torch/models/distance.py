@@ -2,12 +2,13 @@
 
 :func:`compare_sketches` is the literal merge-join walk with its union cap,
 copied from :mod:`fpmash_tpu.models.distance`: the parity model.
-:func:`all_pairs_dist` computes every pair on the chosen device and follows
+:func:`all_pairs_dist` computes every pair on the chosen devices and follows
 the literal walk: where the sorted comparison (kernel K9,
-``ops/compare.py``) equals the walk on every pair (:func:`k9_equals_walk`)
-the pairs go through it, otherwise through the walk over the stored order
-(kernel K2, ``ops/walk.py``), so the reference's order-dependent result on
-unsorted fingerprint lists is reproduced, not "fixed".  The JAX package's
+:func:`all_pairs_common_denom`) equals the walk on every pair
+(:func:`k9_equals_walk`) the pairs go through it, otherwise through the walk
+over the stored order (kernel K2, :func:`all_pairs_walk`), so the
+reference's order-dependent result on unsorted fingerprint lists is
+reproduced, not "fixed".  The JAX package's
 device route sends every non-decreasing list to its sorted comparison,
 which counts a repeated hash into ``common`` and prints ``279/1`` where the
 walk prints ``130/150``; that is a defect of the reference, not copied.
@@ -23,8 +24,17 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from fpmash_tpu_torch.ops.walk import pad_lists
+from fpmash_tpu_torch.parallel.sharded import (
+    sharded_all_pairs,
+    sharded_all_pairs_positional,
+    sharded_all_pairs_walk,
+)
 from fpmash_tpu_torch.scalar.stats import chisq_sf, mash_distance, mash_pvalue
 from fpmash_tpu_torch.utils.trace import trace
+
+#: pairs per launch of :func:`all_pairs_common_denom` (8 bytes of output each)
+_TILE_PAIRS = 1 << 26
 
 
 @dataclass
@@ -159,25 +169,65 @@ def k9_equals_walk(hashes_lists) -> bool:
     ) and not any(len(h) and int(h[-1]) == _PAD for h in hashes_lists)
 
 
-def common_denom(refs, qrys, sketch_size: int, *, device, mesh=None):
+def all_pairs_common_denom(refs, qrys, sketch_size: int, *, devices):
+    """Lists of sorted hash arrays -> ``(common, denom)`` as numpy
+    ``int32 [len(refs), len(qrys)]``, through K9 (``ops/compare_cuda.py``; its
+    plain version on the CPU).  The lists go to ``devices[0]`` once, and the
+    kernel runs over blocks of reference rows of ``_TILE_PAIRS`` pairs, so
+    that the ``[rows, Q]`` outputs of one launch stay bounded (a RefSeq-size
+    reference set does not fit one launch's outputs); the query axis of each
+    block is sharded over ``devices`` (``parallel/sharded.sharded_all_pairs``).
+    The TPU route's multiple-of-8 padding, ``c << 16 | d`` packing and
+    in-flight window are not needed."""
+    ref, ref_len = pad_lists(refs, devices[0])
+    qry, qry_len = pad_lists(qrys, devices[0])
+    R, Q = len(refs), len(qrys)
+    common = np.zeros((R, Q), np.int32)
+    denom = np.zeros((R, Q), np.int32)
+    rows = max(1, _TILE_PAIRS // max(Q, 1))
+    for r0 in range(0, R, rows):
+        c, d = sharded_all_pairs(devices, ref[r0 : r0 + rows], ref_len[r0 : r0 + rows], qry,
+                                 qry_len, sketch_size)
+        common[r0 : r0 + rows] = c.cpu().numpy()
+        denom[r0 : r0 + rows] = d.cpu().numpy()
+    return common, denom
+
+
+def all_pairs_walk(refs, qrys, sketch_size: int, *, devices):
+    """Lists of (unsorted) hash arrays -> ``(common, denom)`` as numpy
+    ``int32 [len(refs), len(qrys)]``, walked in their stored order by K2
+    (``ops/walk_cuda.py``; its plain version on the CPU) in one call a shard
+    of the query axis over ``devices`` (``parallel/sharded.sharded_all_pairs_walk``).
+    Counterpart of ``fpmash_tpu/ops/walk.py:130``."""
+    ref, ref_len = pad_lists(refs, devices[0])
+    qry, qry_len = pad_lists(qrys, devices[0])
+    common, denom = sharded_all_pairs_walk(devices, ref, ref_len, qry, qry_len, sketch_size)
+    return common.cpu().numpy(), denom.cpu().numpy()
+
+
+def all_pairs_positional(fingerprint_hashes, *, devices):
+    """List of (unsorted) hash arrays -> ``(matches, minlen)`` as numpy
+    ``int32 [N, N]``, for the fingerprint triangle (``ops/compare.py``'s
+    positional comparison), the rows sharded over ``devices``."""
+    h, lens = pad_lists(fingerprint_hashes, devices[0])
+    matches, n = sharded_all_pairs_positional(devices, h, lens)
+    return matches.cpu().numpy(), n.cpu().numpy()
+
+
+def common_denom(refs, qrys, sketch_size: int, *, devices):
     """``(common, denom)`` numpy ``int32 [len(refs), len(qrys)]`` of every
-    pair on ``device``, the literal walk's: through the sorted comparison K9
-    (``ops/compare.py``) where :func:`k9_equals_walk` holds for both sides,
-    through the walk K2 (``ops/walk.py``) over the lists in their stored
-    order otherwise.  ``dist`` and ``triangle`` both route here.  With a
-    ``mesh`` of several shards, either kernel's query axis is sharded over
-    it (``parallel/sharded.py``); the route does not depend on the mesh."""
+    pair, the literal walk's: through the sorted comparison K9
+    (:func:`all_pairs_common_denom`) where :func:`k9_equals_walk` holds for
+    both sides, through the walk K2 (:func:`all_pairs_walk`) over the lists in
+    their stored order otherwise.  ``dist`` and ``triangle`` both route here.
+    Either kernel's query axis is sharded over ``devices``; the route does
+    not depend on how many there are."""
     pairs = len(refs) * len(qrys)
-    shards = len(mesh) if mesh else 1
     if k9_equals_walk(refs) and (qrys is refs or k9_equals_walk(qrys)):
-        from fpmash_tpu_torch.ops.compare import all_pairs_common_denom
-
-        with trace("all-pairs-compare", pairs=pairs, shards=shards):
-            return all_pairs_common_denom(refs, qrys, sketch_size, device=device, mesh=mesh)
-    from fpmash_tpu_torch.ops.walk import all_pairs_walk
-
-    with trace("all-pairs-walk", pairs=pairs, shards=shards):
-        return all_pairs_walk(refs, qrys, sketch_size, device=device, mesh=mesh)
+        with trace("all-pairs-compare", pairs=pairs, shards=len(devices)):
+            return all_pairs_common_denom(refs, qrys, sketch_size, devices=devices)
+    with trace("all-pairs-walk", pairs=pairs, shards=len(devices)):
+        return all_pairs_walk(refs, qrys, sketch_size, devices=devices)
 
 
 def all_pairs_dist(
@@ -186,8 +236,7 @@ def all_pairs_dist(
     max_distance: float = -1.0,
     max_pvalue: float = -1.0,
     *,
-    device,
-    mesh=None,
+    devices,
 ):
     """Ref x query pairwise Mash distance (CommandDistance::run semantics).
 
@@ -201,7 +250,7 @@ def all_pairs_dist(
     through the walk K2, as for ``triangle``.  The JAX device route
     (``fpmash_tpu/models/distance.py:166-221``) takes its sorted comparison
     for every non-decreasing list and reports ``common > denom`` on a
-    repeated hash; the port does not copy that defect.  ``mesh``: see
+    repeated hash; the port does not copy that defect.  ``devices``: see
     :func:`common_denom`.
     """
     sketch_size = min(ref_sketch.params.sketch_size, qry_sketch.params.sketch_size)
@@ -211,8 +260,7 @@ def all_pairs_dist(
         [r.hashes for r in ref_sketch.references],
         [q.hashes for q in qry_sketch.references],
         sketch_size,
-        device=device,
-        mesh=mesh,
+        devices=devices,
     )
     with trace("pair-results", pairs=common.size):
         for qi, q in enumerate(qry_sketch.references):

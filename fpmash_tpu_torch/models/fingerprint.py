@@ -34,9 +34,9 @@ from typing import Iterable, Sequence
 
 import numpy as np
 
+from fpmash_tpu_torch.device import to_device, to_host
 from fpmash_tpu_torch.ops.factorize import plan
 from fpmash_tpu_torch.ops.icfl_cuda import MAX_ICFL_WIDTH, factor_words
-from fpmash_tpu_torch.parallel.sharded import to_device, to_host
 from fpmash_tpu_torch.scalar.lyndon import FACTORIZATIONS, reverse_complement
 from fpmash_tpu_torch.utils.fasta import read_sequences
 from fpmash_tpu_torch.utils.native_lyndon import factorize_flat

@@ -7,7 +7,8 @@ multiplication, addition and left shift wrap bit-exactly, so only two
 operations need care, and both live here:
 
 * :func:`shr` — a logical right shift (arithmetic shift, then mask);
-* :func:`ult` — an unsigned compare (flip the sign bit of both sides).
+* :func:`ult` — an unsigned compare (flip the sign bit of both sides,
+  :func:`flip_sign`, whose signed order is the unsigned order of the bits).
 
 :func:`to_signed` turns an unsigned Python constant into its ``int64``
 image; ``numpy`` arrays of ``uint64`` cross with ``.view(np.int64)``.
@@ -43,9 +44,15 @@ def rotl(x: torch.Tensor, r: int) -> torch.Tensor:
     return (x << r) | shr(x, 64 - r)
 
 
+def flip_sign(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with its sign bit flipped: signed order of the result is the
+    unsigned order of ``x``'s bits, and flipping again gives ``x`` back."""
+    return x ^ _SIGN
+
+
 def ult(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Unsigned ``a < b`` of ``int64`` bits."""
-    return (a ^ _SIGN) < (b ^ _SIGN)
+    return flip_sign(a) < flip_sign(b)
 
 
 _C1 = to_signed(0x87C37B91114253D5)

@@ -1,21 +1,19 @@
-"""Host wrapper of the merge-join walk: hash lists in, ``(common, denom)`` out.
+"""Hash lists as the all-pairs kernels take them.
 
-Counterpart of ``fpmash_tpu/ops/walk.py:130 all_pairs_walk``.  The lists
-are zero-padded into one ``int64 [R, S]`` tensor per side plus lengths, put
-on the chosen device, and walked by :func:`pairwise_walk` in one call (the
-kernel on a CUDA device, its plain version on the CPU), or one call a shard
-of the query axis over a mesh.  The TPU route's power-of-two step bucket
-and rows padded to multiples of 8 are not needed here: the kernel's loop
-ends on its own and a launch takes any number of pairs.
+The lists are zero-padded into one ``int64 [R, S]`` tensor plus ``int32``
+lengths (the layout of ``fpmash_tpu/ops/walk.py:130 all_pairs_walk``), for
+the walk K2 (``ops/walk_cuda.py``), the sorted comparison K9
+(``ops/compare_cuda.py``) and the positional comparison
+(``ops/compare.py``); the routes over them are in ``models/distance.py``.
+The TPU route's power-of-two step bucket and rows padded to multiples of 8
+are not needed here: the kernels' loops end on their own and a launch takes
+any number of pairs.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
-
-from fpmash_tpu_torch.ops.walk_cuda import pairwise_walk
-
 
 
 def pad_lists(arrays, device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -30,17 +28,3 @@ def pad_lists(arrays, device) -> tuple[torch.Tensor, torch.Tensor]:
         torch.from_numpy(out.view(np.int64)).to(device),
         torch.from_numpy(lens).to(device),
     )
-
-
-def all_pairs_walk(refs, qrys, sketch_size: int, *, device, mesh=None):
-    """Lists of (unsorted) hash arrays -> ``(common, denom)`` as numpy
-    ``int32 [len(refs), len(qrys)]``; with a ``mesh`` of several shards, the
-    query axis is sharded over it (``parallel/sharded.shard_queries``, the
-    layout of ``sharded_all_pairs_walk``)."""
-    from fpmash_tpu_torch.parallel.sharded import mesh_of, shard_queries
-
-    mesh = mesh_of(device, mesh)
-    ref, ref_len = pad_lists(refs, mesh[0])
-    qry, qry_len = pad_lists(qrys, mesh[0])
-    common, denom = shard_queries(pairwise_walk, mesh, ref, ref_len, qry, qry_len, sketch_size)
-    return common.cpu().numpy(), denom.cpu().numpy()

@@ -39,7 +39,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from fpmash_tpu_torch.parallel.sharded import to_device, to_host
+from fpmash_tpu_torch.device import to_device, to_host
 
 #: the plain version's window elements ``[C, ws]`` per chunk: 16 Mi on a
 #: card; 1 Mi on the CPU, the JAX package's numpy chunk (tests shrink it to

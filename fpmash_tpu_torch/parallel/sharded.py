@@ -3,7 +3,8 @@
 Counterpart of :mod:`fpmash_tpu.parallel.sharded`, with its names and
 contracts.  The JAX package runs ``shard_map`` over a 1-D ``dp`` mesh from
 one controller; here one process runs every shard.  A mesh is a tuple of
-``torch.device`` (``parallel/mesh.py``); shard ``i`` takes the ``i``-th
+``torch.device`` (``device.resolve_devices``; a device may repeat, so
+several shards may share one card or the CPU); shard ``i`` takes the ``i``-th
 contiguous block of ``ceil(B / D)`` rows and runs on ``mesh[i]``, on that
 device's current stream (each kernel wrapper enters ``torch.cuda.device`` of
 its tensors and launches on ``torch.cuda.current_stream``).  Every shard is
@@ -24,45 +25,13 @@ a function needs it, comes from the sign-flipped sorts of ``ops/bottomk.py``.
 
 from __future__ import annotations
 
-import os
 from functools import partial
 
 import numpy as np
 import torch
 
-from fpmash_tpu_torch.parallel.mesh import default_mesh
-from fpmash_tpu_torch.utils.trace import count
-
-
-def visible_device_count(device="cuda") -> int:
-    """Devices the sharded routes of the CLI may use for ``device``.
-
-    For ``cuda`` (no card index) every card, capped by ``FPMASH_DEVICES=N``
-    (the JAX package's knob, ``fpmash_tpu/parallel/sharded.py:38-52``); an
-    explicit card (``cuda:1``) or the CPU is one device.
-    """
-    dev = torch.device(device)
-    if dev.type != "cuda" or dev.index is not None:
-        return 1
-    n = torch.cuda.device_count()
-    cap = os.environ.get("FPMASH_DEVICES", "").strip()
-    if cap:
-        n = min(n, int(cap))
-    return max(1, n)
-
-
-def visible_devices(device) -> tuple[torch.device, ...]:
-    """The mesh the CLI runs its sharded routes on for ``--device``: the
-    first :func:`visible_device_count` cards for ``cuda``, else ``device``."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and dev.index is None:
-        return default_mesh(visible_device_count(dev), dev)
-    return (dev,)
-
-
-def mesh_of(device, mesh=None) -> tuple[torch.device, ...]:
-    """``mesh``, or the one-shard mesh of ``device`` when it is None."""
-    return tuple(mesh) if mesh else (torch.device(device),)
+from fpmash_tpu_torch.device import to_device
+from fpmash_tpu_torch.ops import bottomk, compare, compare_cuda, fused_cuda, walk_cuda
 
 
 def row_blocks(n: int, shards: int) -> list[tuple[int, int]]:
@@ -70,30 +39,6 @@ def row_blocks(n: int, shards: int) -> list[tuple[int, int]]:
     shards)`` rows each, the last one possibly fewer."""
     size = -(-n // shards)
     return [(b0, min(b0 + size, n)) for b0 in range(0, n, size)] if n else []
-
-
-def to_device(a, dev) -> torch.Tensor:
-    """``a`` (a tensor, or a numpy array) as a contiguous tensor on ``dev``.
-
-    Where ``a`` lies on the host, its bytes count as ``h2d_bytes`` of the
-    open span (``utils/trace.py``), whatever ``dev`` is: the count is what
-    the route hands across, so a CPU run counts what a card would get."""
-    if isinstance(a, np.ndarray):
-        a = np.ascontiguousarray(a)
-        if a.dtype == np.uint64:
-            a = a.view(np.int64)
-        a = torch.from_numpy(a if a.flags.writeable else a.copy())
-    a = a.contiguous()
-    if a.device.type == "cpu":
-        count("h2d_bytes", a.nbytes)
-    return a.to(dev)
-
-
-def to_host(t: torch.Tensor) -> np.ndarray:
-    """``t`` as a numpy array on the host; its bytes count as ``d2h_bytes``
-    of the open span, whatever device it is on (see :func:`to_device`)."""
-    count("d2h_bytes", t.nbytes)
-    return t.cpu().numpy()
 
 
 def _gather(outs, dst: torch.device, dim: int):
@@ -162,18 +107,14 @@ def sharded_fingerprint_hashes(mesh, windows, lengths, seed: int = 42) -> torch.
     """``u8 [B, L]`` windows and their lengths -> ``int64 [B]`` hashes (h1 of
     MurmurHash3_x64_128 over each window's Duval factor lengths), kernel K1
     on each shard's rows (``ops/fused_cuda.fingerprint_hashes_fused``)."""
-    from fpmash_tpu_torch.ops.fused_cuda import fingerprint_hashes_fused
-
-    return shard_rows(lambda w, n: fingerprint_hashes_fused(w, n, seed)[0], (windows, lengths),
-                      mesh)
+    return shard_rows(lambda w, n: fused_cuda.fingerprint_hashes_fused(w, n, seed)[0],
+                      (windows, lengths), mesh)
 
 
 def _local_bottom_k(hashes, valid, s: int) -> torch.Tensor:
     """Bottom-s distinct live hashes, ascending as unsigned, padded with
     ``-1`` (2^64 - 1, the pad: a real hash equal to it is dropped)."""
-    from fpmash_tpu_torch.ops.bottomk import bottom_k_distinct
-
-    return bottom_k_distinct(hashes, valid, s=s)[0]
+    return bottomk.bottom_k_distinct(hashes, valid, s=s)[0]
 
 
 def sharded_bottom_k(mesh, hashes, valid, s: int) -> torch.Tensor:
@@ -202,9 +143,8 @@ def sharded_all_pairs(mesh, ref, ref_len, qry, qry_len, sketch_size: int):
     """``(common, denom) int32 [R, Q]`` of the sorted comparison (kernel K9,
     ``ops/compare_cuda.py``) with the queries sharded and the references
     on every shard."""
-    from fpmash_tpu_torch.ops.compare_cuda import pairwise_common_denom
-
-    return shard_queries(pairwise_common_denom, mesh, ref, ref_len, qry, qry_len, sketch_size)
+    return shard_queries(compare_cuda.pairwise_common_denom, mesh, ref, ref_len, qry, qry_len,
+                         sketch_size)
 
 
 def sharded_all_pairs_walk(mesh, ref, ref_len, qry, qry_len, sketch_size: int,
@@ -214,33 +154,28 @@ def sharded_all_pairs_walk(mesh, ref, ref_len, qry, qry_len, sketch_size: int,
     package's bound on the walk's trip count; the kernel's loop ends on its
     own, so it is only checked: a bound below ``min(sketch_size, S1 + S2)``,
     which could cut a walk, raises."""
-    from fpmash_tpu_torch.ops.walk_cuda import pairwise_walk
-
     worst = min(sketch_size, ref.shape[1] + qry.shape[1])
     if max_steps is not None and max_steps < worst:
         raise ValueError(f"max_steps={max_steps} would cut walks of up to {worst} steps")
-    return shard_queries(pairwise_walk, mesh, ref, ref_len, qry, qry_len, sketch_size)
+    return shard_queries(walk_cuda.pairwise_walk, mesh, ref, ref_len, qry, qry_len, sketch_size)
 
 
 def sharded_all_pairs_positional(mesh, hashes, lens):
     """All-pairs positional matches of one set (``triangle -fp``,
     CommandTriangle.cpp:265) with the row axis sharded: each shard compares
     its rows against the whole set.  ``(matches, n) int32 [N, N]``."""
-    from fpmash_tpu_torch.ops.compare import pairwise_positional
-
     table = _replicas((hashes, lens))
-    return shard_rows(lambda h, n: pairwise_positional(h, n, *table(h.device)), (hashes, lens),
-                      mesh)
+    return shard_rows(lambda h, n: compare.pairwise_positional(h, n, *table(h.device)),
+                      (hashes, lens), mesh)
 
 
 def sharded_all_pairs_replicated(mesh, ref, ref_len, qry, qry_len, sketch_size: int):
     """All-pairs (K9) with the references sharded and the queries on every
     shard: the layout for a query side of one merged sketch."""
-    from fpmash_tpu_torch.ops.compare_cuda import pairwise_common_denom
-
     qrys = _replicas((qry, qry_len))
-    return shard_rows(lambda r, rl: pairwise_common_denom(r, rl, *qrys(r.device), sketch_size),
-                      (ref, ref_len), mesh)
+    return shard_rows(
+        lambda r, rl: compare_cuda.pairwise_common_denom(r, rl, *qrys(r.device), sketch_size),
+        (ref, ref_len), mesh)
 
 
 def pipeline_step(mesh, windows, lengths, ref, ref_len, *, seed: int = 42,

@@ -40,7 +40,7 @@ at the main paths' shapes on inputs made from a fixed seed:
   times the kernel without the wrapper's host work;
 * BASELINE config 4's 10 100 sketches of s = 1000, made as
   ``chip_smoke._cluster_lists`` makes them: K9 at ``dist``'s 10 000 x 100
-  and at one all-pairs tile (the first ``ops/compare._TILE_PAIRS // 10 000``
+  and at one all-pairs tile (the first ``models/distance._TILE_PAIRS // 10 000``
   rows against all 10 000), and K2 at a tile of the first 1 000 rows
   against all 10 000 (``k2_tile_ms``, 10^7 pairs);
 * the minmer kernel (``ops/winnow.minmer_marks``) at its five shapes, on
@@ -146,8 +146,8 @@ def worker(tree: Path, only: list[str]) -> dict:
         walk_cuda,
         winnow,
     )
+    from fpmash_tpu_torch.models.distance import _TILE_PAIRS
     from fpmash_tpu_torch.ops import kmers_cuda as kc
-    from fpmash_tpu_torch.ops.compare import _TILE_PAIRS
     from fpmash_tpu_torch.ops.kmers import chunk_threshold
     from fpmash_tpu_torch.ops.walk import pad_lists
 
@@ -210,7 +210,7 @@ def worker(tree: Path, only: list[str]) -> dict:
     def minmer_shapes() -> dict:
         """``(h, prev, ws, mins)`` of the minmer kernel at its five shapes
         and at a window of 3."""
-        from fpmash_tpu_torch.models.sketch import SketchParams, _position_hashes
+        from fpmash_tpu_torch.models.sketch import SketchParams, position_hashes
         from fpmash_tpu_torch.ops.winnow import prev_occurrence
 
         own = np.random.default_rng(2028)
@@ -218,14 +218,14 @@ def worker(tree: Path, only: list[str]) -> dict:
         chrom = acgt[own.integers(0, 4, size=BASES)].tobytes()
         p21 = SketchParams(kmer_size=K_WIDE, sketch_size=100, window_size=10_000, windowed=True)
         p16 = SketchParams(kmer_size=K_NARROW, sketch_size=10, window_size=1000, windowed=True)
-        hc = _position_hashes(chrom, p21, dev)
+        hc = position_hashes(chrom, p21, dev)
         values = torch.from_numpy(own.integers(0, 1 << 63, size=3, dtype=np.uint64).view(np.int64))
         hw = values[torch.from_numpy(own.integers(0, 3, size=1_000_000))].to(dev)
-        h16 = _position_hashes(acgt[own.integers(0, 4, size=200_000)].tobytes(), p16, dev)
+        h16 = position_hashes(acgt[own.integers(0, 4, size=200_000)].tobytes(), p16, dev)
         out = {}
         for key, h, ws, mins in (
                 ("chrom", hc, 10_000, 100), ("chunk", hc[: 1677 + 9999], 10_000, 100),
-                ("query", _position_hashes(chrom[:5000], p21, dev), 4980, 100),
+                ("query", position_hashes(chrom[:5000], p21, dev), 4980, 100),
                 ("worst", hw, 10_000, 100), ("k16", h16, 1000, 10),
                 ("w3", hc[:1_000_000].contiguous(), 3, 1)):
             out[key] = (h, prev_occurrence(h), ws, mins)

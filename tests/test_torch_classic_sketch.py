@@ -53,7 +53,7 @@ def _jax_pool_sketch(seq, s, min_cov=1, **params):
 
 
 def _port_direct(seq, **params):
-    return port_sketch._classic_sketch_direct([seq], port_sketch.SketchParams(**params), CPU)
+    return port_sketch._classic_sketch_direct([seq], port_sketch.SketchParams(**params), (CPU,))
 
 
 @pytest.fixture
@@ -107,7 +107,7 @@ def test_direct_reads_route_min_cov2_matches_jax_pool(monkeypatch, routes):
     # to the pool path; either way the sketch is exact
     seq2 = _dna(rng, 20000)
     p = port_sketch.SketchParams(**params)
-    got2 = port_sketch._sketch_pools([seq2], p, CPU)
+    got2 = port_sketch._sketch_pools([seq2], p, (CPU,))
     want2 = _jax_pool_sketch(seq2, 64, min_cov=2)
     assert np.array_equal(got2[0], want2[0]) and np.array_equal(got2[1], want2[1])
 
@@ -135,7 +135,7 @@ def test_sequences_sketch_matches_jax_and_scalar_model():
                for i, n in enumerate([3000, 20, 700, 5, 1500])]
     for k, merge in ((21, True), (12, False), (21, False)):
         port = port_sketch.Sketch(port_sketch.SketchParams(kmer_size=k, sketch_size=300))
-        port.init_from_sequences(records, name="x" if merge else "", merge=merge, device=CPU)
+        port.init_from_sequences(records, name="x" if merge else "", merge=merge, devices=(CPU,))
         jax = jax_sketch.Sketch(jax_sketch.SketchParams(kmer_size=k, sketch_size=300))
         jax.init_from_sequences(records, name="x" if merge else "", merge=merge)
         assert len(port) == len(jax) == (1 if merge else sum(len(r[2]) >= k for r in records))
@@ -144,7 +144,7 @@ def test_sequences_sketch_matches_jax_and_scalar_model():
             assert np.array_equal(a.hashes, b.hashes)
     p = port_sketch.SketchParams(kmer_size=15)
     seqs = [r[2] for r in records]
-    pool = port_sketch._kmer_hash_pool(seqs, p, CPU).numpy().view(np.uint64)
+    pool = port_sketch._kmer_hash_pool(seqs, p, (CPU,)).numpy().view(np.uint64)
     assert np.array_equal(pool, port_sketch._kmer_hash_pool_scalar(seqs, p))
 
 

@@ -26,6 +26,7 @@ from fpmash_tpu_torch.models import distance as port_distance
 from fpmash_tpu_torch.models.sketch import sketch_from_arrays
 from fpmash_tpu_torch.ops import compare as port_compare
 from fpmash_tpu_torch.ops import compare_cuda
+from fpmash_tpu_torch.ops.walk import pad_lists
 
 CPU = torch.device("cpu")
 U64MAX = np.uint64(0xFFFFFFFFFFFFFFFF)
@@ -110,7 +111,7 @@ def test_plain_k9_equals_literal_walk_on_sorted_distinct_lists():
             for n in rng.integers(0, 90, 7)]
     qrys[0] = refs[1][::2].copy()
     for cap in (5, 50, 1000):
-        c, d = port_compare.all_pairs_common_denom(refs, qrys, cap, device=CPU)
+        c, d = port_distance.all_pairs_common_denom(refs, qrys, cap, devices=(CPU,))
         for ri, A in enumerate(refs):
             for qi, B in enumerate(qrys):
                 res = compare_sketches(A, B, 1, 1, cap, 21, 4.0**21)
@@ -120,7 +121,7 @@ def test_plain_k9_equals_literal_walk_on_sorted_distinct_lists():
 def test_the_issue_example_differs_from_the_walk():
     """A = [5, 5, 9], B = [5, 7]: the union merge gives 2/3, the walk 1/4."""
     A, B = np.array([5, 5, 9], np.uint64), np.array([5, 7], np.uint64)
-    c, d = port_compare.all_pairs_common_denom([A], [B], 1000, device=CPU)
+    c, d = port_distance.all_pairs_common_denom([A], [B], 1000, devices=(CPU,))
     assert (int(c[0, 0]), int(d[0, 0])) == (2, 3)
     res = port_distance.compare_sketches(A, B, 1, 1, 1000, 21, 4.0**21)
     assert (res.numer, res.denom) == (1, 4)
@@ -133,10 +134,10 @@ def test_all_pairs_common_denom_tiles_rows(monkeypatch):
     rng = np.random.default_rng(4)
     refs = [np.sort(rng.integers(0, 300, int(n)).astype(np.uint64)) for n in rng.integers(0, 60, 11)]
     qrys = [np.sort(rng.integers(0, 300, int(n)).astype(np.uint64)) for n in rng.integers(0, 60, 5)]
-    whole = port_compare.all_pairs_common_denom(refs, qrys, 40, device=CPU)
-    monkeypatch.setattr(port_compare, "_TILE_PAIRS", 7)
+    whole = port_distance.all_pairs_common_denom(refs, qrys, 40, devices=(CPU,))
+    monkeypatch.setattr(port_distance, "_TILE_PAIRS", 7)
     monkeypatch.setattr(port_compare, "_PLAIN_ELEMENTS", 300)
-    tiled = port_compare.all_pairs_common_denom(refs, qrys, 40, device=CPU)
+    tiled = port_distance.all_pairs_common_denom(refs, qrys, 40, devices=(CPU,))
     want = jax_all_pairs(refs, qrys, 40)
     for got in (whole, tiled):
         assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
@@ -187,15 +188,16 @@ def test_dist_matches_jax_device_route(monkeypatch, sorted_):
     p_qry, r_qry = _sketches(rng, 8, 30, sorted_)
     calls = _k9_calls(monkeypatch)
     port = list(port_distance.all_pairs_dist(
-        sketch_from_arrays(p_ref, r_ref), sketch_from_arrays(p_qry, r_qry), device=CPU))
+        sketch_from_arrays(p_ref, r_ref), sketch_from_arrays(p_qry, r_qry), devices=(CPU,)))
     assert not calls
     walk = [port_distance.compare_sketches(r["hashes"], q["hashes"], r["length"], q["length"],
                                            30, 21, 4.0**21)
             for q in r_qry for r in r_ref]
     assert [r.__dict__ for _, _, r in port] == [w.__dict__ for w in walk]
     if sorted_:  # on repeats K9 would have printed other counts
-        k9 = port_compare.all_pairs_common_denom([r["hashes"] for r in r_ref],
-                                                 [q["hashes"] for q in r_qry], 30, device=CPU)
+        k9 = port_distance.all_pairs_common_denom([r["hashes"] for r in r_ref],
+                                                  [q["hashes"] for q in r_qry], 30,
+                                                  devices=(CPU,))
         assert any((w.numer, w.denom) != (int(k9[0][ri, qi]), int(k9[1][ri, qi]))
                    for (ri, qi, _), w in zip(port, walk))
     else:
@@ -205,7 +207,8 @@ def test_dist_matches_jax_device_route(monkeypatch, sorted_):
                [(ri, qi, r.__dict__) for ri, qi, r in jax]
 
     small = list(port_distance.all_pairs_dist(
-        sketch_from_arrays(p_ref, r_ref[:7]), sketch_from_arrays(p_qry, r_qry), device=CPU))
+        sketch_from_arrays(p_ref, r_ref[:7]), sketch_from_arrays(p_qry, r_qry),
+        devices=(CPU,)))
     jax = list(jax_distance.all_pairs_dist(_jax_sketch(p_ref, r_ref[:7]),
                                            _jax_sketch(p_qry, r_qry), backend="auto"))
     assert [(ri, qi, r.__dict__) for ri, qi, r in small] == \
@@ -279,10 +282,10 @@ def test_positional_matches_jax():
 
     rng = np.random.default_rng(31)
     lists = [rng.integers(0, 4, int(n)).astype(np.uint64) for n in rng.integers(0, 25, 13)]
-    h, lens = port_compare.pad_lists(lists, CPU)
+    h, lens = pad_lists(lists, CPU)
     want_m, want_n = pairwise_positional(jnp.asarray(h.numpy().view(np.uint64)),
                                          jnp.asarray(lens.numpy()))
-    m, n = port_compare.all_pairs_positional(lists, device=CPU)
+    m, n = port_distance.all_pairs_positional(lists, devices=(CPU,))
     assert np.array_equal(m, np.asarray(want_m)) and np.array_equal(n, np.asarray(want_n))
     assert m.sum() > np.trace(m)
     got = port_compare.positional_matches(h[:5], lens[:5], h[5:10], lens[5:10])
@@ -294,9 +297,9 @@ def test_positional_matches_jax():
 def test_positional_rows_tiled(monkeypatch):
     rng = np.random.default_rng(32)
     lists = [rng.integers(0, 3, int(n)).astype(np.uint64) for n in rng.integers(1, 20, 9)]
-    whole = port_compare.all_pairs_positional(lists, device=CPU)
+    whole = port_distance.all_pairs_positional(lists, devices=(CPU,))
     monkeypatch.setattr(port_compare, "_PLAIN_ELEMENTS", 50)
-    tiled = port_compare.all_pairs_positional(lists, device=CPU)
+    tiled = port_distance.all_pairs_positional(lists, devices=(CPU,))
     assert all(np.array_equal(a, b) for a, b in zip(whole, tiled))
 
 

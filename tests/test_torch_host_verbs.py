@@ -179,6 +179,19 @@ def test_taxscreen_equals_jax(world, tmp_path, capsys, mapping):
                   "-t", str(tmp_path)], capsys)[0] == 1  # no taxonomy there
 
 
+@pytest.mark.parametrize("pool,rc", [(">a\nACGTACGT\n>b\n\n>c\nACGTACGTACGTACGTACGT\n", 1),
+                                     (">a\nACGT\n>n\n" + "N" * 30 + "\n", 0)],
+                         ids=["short_records", "record_without_kmers"])
+def test_taxscreen_pool_records_shorter_than_k(world, tmp_path, capsys, pool, rc):
+    """A pool with no record of ``k`` bases stops with the JAX CLI's error;
+    one record of ``k`` bases or more is enough, even with no valid k-mer."""
+    (tmp_path / "nodes.dmp").write_text(_NODES)
+    (tmp_path / "names.dmp").write_text(_NAMES)
+    (tmp_path / "pool.fa").write_text(pool)
+    assert _both(["taxscreen", str(world / "refs.msh"), str(tmp_path / "pool.fa"),
+                  "-t", str(tmp_path)], capsys)[0] == rc
+
+
 def test_generate_and_mapping_equal_jax(golden_dir, tmp_path, capsys):
     for side, main in (("port", port_main), ("jax", jax_main)):
         d = tmp_path / side

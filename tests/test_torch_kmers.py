@@ -322,7 +322,7 @@ def test_direct_route_on_card_matches_cpu(cuda_device, monkeypatch):
                    dict(sketch_size=16, min_cov=2, reads=True, counts=True)):
         p = port_sketch.SketchParams(**params)
         before = sum(kmers_cuda.LAUNCHES.values())
-        card = port_sketch._sketch_pools([seq], p, cuda_device)
+        card = port_sketch._sketch_pools([seq], p, (cuda_device,))
         assert sum(kmers_cuda.LAUNCHES.values()) > before
-        cpu = port_sketch._sketch_pools([seq], p, torch.device("cpu"))
+        cpu = port_sketch._sketch_pools([seq], p, (torch.device("cpu"),))
         assert np.array_equal(card[0], cpu[0]) and np.array_equal(card[1], cpu[1])

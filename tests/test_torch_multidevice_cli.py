@@ -3,8 +3,8 @@
 Each command runs through the port's CLI on one CPU shard and on 8, and
 through the JAX CLI on its 8 virtual devices (``FPMASH_DEVICES=8``); the
 ``.msh`` bytes or the printed lines must be identical.  The port's CLI
-builds its mesh with ``parallel.sharded.visible_devices``, which gives one
-device for ``--device cpu``; the tests monkeypatch it to 8 CPU shards, the
+takes its devices from ``device.resolve_devices``, which gives one device
+for ``--device cpu``; the tests monkeypatch it to 8 CPU shards, the
 counterpart of the 8 host devices that ``tests/conftest.py`` forces on JAX.
 The classic routes' chunk sizes are shrunk so that small inputs take the
 direct route or several pool launches, and so spread over the shards.  A
@@ -16,11 +16,11 @@ import pytest
 import torch
 
 from fpmash_tpu.cli import main as jax_main
+from fpmash_tpu_torch import device as placement
 from fpmash_tpu_torch.cli import main as port_main
 from fpmash_tpu_torch.models import sketch as port_sketch
 from fpmash_tpu_torch.models.sketch import sketch_from_arrays
 from fpmash_tpu_torch.ops import fused_cuda, kmers_cuda
-from fpmash_tpu_torch.parallel import sharded
 from fpmash_tpu_torch.utils import trace as trace_mod
 
 CPU = torch.device("cpu")
@@ -72,7 +72,7 @@ def world(tmp_path_factory):
 
 def _port(argv, monkeypatch, capsys, shards):
     """The port's CLI on ``shards`` CPU shards: ``(stdout, trace spans)``."""
-    monkeypatch.setattr(sharded, "visible_devices", lambda device: (CPU,) * shards)
+    monkeypatch.setattr(placement, "resolve_devices", lambda name: (CPU,) * shards)
     capsys.readouterr()
     was = trace_mod.enabled()
     trace_mod.enable(True)

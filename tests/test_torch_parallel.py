@@ -2,7 +2,8 @@
 
 The JAX side runs on the 8 virtual CPU devices that ``tests/conftest.py``
 forces (``default_mesh(8)``, and ``visible_device_count() == 8`` for its
-routes); the port runs on an explicit mesh of 8 CPU shards, with the
+routes); the port runs on an explicit mesh of 8 CPU shards (``(CPU,) * 8``,
+the ``devices`` of its routes), with the
 kernels' plain versions.  The same numpy-seeded inputs go through both and
 must agree bit for bit, and with the port's one-device run: row counts
 below and not divisible by 8, zero-length rows, hashes at and above 2^63, a
@@ -21,12 +22,12 @@ import numpy as np
 import pytest
 import torch
 
+from fpmash_tpu_torch.device import resolve_devices
 from fpmash_tpu_torch.ops import compare_cuda, fused_cuda, icfl_cuda, kmers_cuda, walk_cuda
 from fpmash_tpu_torch.parallel import sharded
-from fpmash_tpu_torch.parallel.mesh import default_mesh
 
 CPU = torch.device("cpu")
-MESH8 = default_mesh(8, "cpu")
+MESH8 = (CPU,) * 8
 U64MAX = np.uint64(0xFFFFFFFFFFFFFFFF)
 
 
@@ -60,15 +61,15 @@ def _windows(rng, B, L=40, zero_rows=True):
 
 
 def test_default_mesh_and_visible_devices(monkeypatch):
+    """``--device cpu`` is the CPU alone, whatever ``FPMASH_DEVICES`` says;
+    other device types are refused."""
     monkeypatch.delenv("FPMASH_DEVICES", raising=False)
-    assert default_mesh(8, "cpu") == (CPU,) * 8
-    assert default_mesh(device="cpu") == (CPU,)
-    with pytest.raises(ValueError, match="at least one shard"):
-        default_mesh(0, "cpu")
-    assert sharded.visible_devices("cpu") == (CPU,)
-    assert sharded.visible_device_count("cpu") == 1
-    assert sharded.mesh_of(CPU) == (CPU,)
-    assert sharded.mesh_of(CPU, MESH8) == MESH8
+    assert resolve_devices("cpu") == (CPU,)
+    assert resolve_devices(CPU) == (CPU,)
+    monkeypatch.setenv("FPMASH_DEVICES", "8")
+    assert resolve_devices("cpu") == (CPU,)
+    with pytest.raises(RuntimeError, match="unsupported"):
+        resolve_devices("meta")
 
 
 @pytest.mark.parametrize("cards,cap,want", [(4, None, 4), (4, "2", 2), (4, "9", 4), (4, "0", 1),
@@ -76,15 +77,19 @@ def test_default_mesh_and_visible_devices(monkeypatch):
 def test_fpmash_devices_caps_the_cards(monkeypatch, cards, cap, want):
     """``FPMASH_DEVICES`` caps the cards of ``cuda`` at the card count, as
     ``fpmash_tpu/parallel/sharded.py:38-52`` does; an explicit card is one."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
     if cap is None:
         monkeypatch.delenv("FPMASH_DEVICES", raising=False)
     else:
         monkeypatch.setenv("FPMASH_DEVICES", cap)
-    assert sharded.visible_device_count("cuda") == want
-    assert sharded.visible_devices("cuda") == tuple(torch.device("cuda", i) for i in range(want))
-    assert sharded.visible_devices("cuda:1") == (torch.device("cuda:1"),)
-    assert sharded.visible_device_count("cpu") == 1
+    assert resolve_devices("cuda") == tuple(torch.device("cuda", i) for i in range(want))
+    if cards > 1:
+        assert resolve_devices("cuda:1") == (torch.device("cuda:1"),)
+    else:
+        with pytest.raises(RuntimeError, match="visible"):
+            resolve_devices("cuda:1")
+    assert resolve_devices("cpu") == (CPU,)
 
 
 @pytest.mark.parametrize("n,shards", [(0, 8), (3, 8), (8, 8), (13, 8), (64, 8), (5, 1)])
@@ -400,7 +405,7 @@ def _card_checks(mesh, shards):
         for m in (one, mesh):
             sk = Sketch(SketchParams().for_fingerprint())
             before = counter()
-            sk.init_from_reads_fingerprint(reads, family, device=m[0], mesh=m)
+            sk.init_from_reads_fingerprint(reads, family, devices=m)
             out.append(([r.hashes for r in sk.references], counter() - before))
         assert all(np.array_equal(a, b) for a, b in zip(out[0][0], out[1][0])), family
         assert out[1][1] == out[0][1] * shards, family
@@ -412,8 +417,8 @@ def _card_checks(mesh, shards):
         for s, key in ((2, "topk8"), (1000, "masked")):
             p = SketchParams(sketch_size=s)
             before = kmers_cuda.LAUNCHES[key]
-            a = port_sketch._sketch_pools([seq], p, one[0], one)
-            b = port_sketch._sketch_pools([seq], p, mesh[0], mesh)
+            a = port_sketch._sketch_pools([seq], p, one)
+            b = port_sketch._sketch_pools([seq], p, mesh)
             assert kmers_cuda.LAUNCHES[key] - before >= 16  # 8 chunks, twice
             assert np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1]), key
     finally:
@@ -446,5 +451,5 @@ def test_one_shard_a_card_equals_one_card(cuda_device):
     the kernels hold on every card)."""
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two or more CUDA cards")
-    mesh = default_mesh(None, "cuda")
+    mesh = tuple(torch.device("cuda", i) for i in range(torch.cuda.device_count()))
     _card_checks(mesh, len(mesh))

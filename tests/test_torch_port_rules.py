@@ -1,4 +1,5 @@
-"""Port rules: no JAX in the port, an explicit device, and the kernels on the card.
+"""Port rules: no JAX in the port, explicit devices, layers that import one way,
+and the kernels on the card.
 
 The tests marked ``gpu`` build the CUDA kernels and hold each one against
 its plain PyTorch version; without a usable card they skip with a reason.
@@ -21,7 +22,7 @@ import pytest
 import torch
 
 from fpmash_tpu_torch.cli import main as port_main
-from fpmash_tpu_torch.device import resolve_device
+from fpmash_tpu_torch.device import resolve_devices
 from fpmash_tpu_torch.ops import fused_cuda, walk_cuda
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -73,22 +74,20 @@ _SHARDED_ROUTES = """
 import numpy as np, torch
 from fpmash_tpu_torch.models.sketch import Sketch, SketchParams
 from fpmash_tpu_torch.models.distance import common_denom
-from fpmash_tpu_torch.parallel.mesh import default_mesh
 from fpmash_tpu_torch.utils.kfinger import compute_windows
-mesh = default_mesh(4, "cpu")
+mesh = (torch.device("cpu"),) * 4
 sk = Sketch(SketchParams().for_fingerprint())
 sk.init_from_reads_fingerprint([("a", "ACGTTGCA" * 30), ("b", "TTGACA" * 40)], "ICFL_COMB",
-                               device=torch.device("cpu"), mesh=mesh)
+                               devices=mesh)
 lists = [r.hashes for r in sk.references]
-common_denom(lists, lists, 1000, device=torch.device("cpu"), mesh=mesh)
-common_denom([np.sort(h) for h in lists], [np.sort(h) for h in lists], 1000,
-             device=torch.device("cpu"), mesh=mesh)
+common_denom(lists, lists, 1000, devices=mesh)
+common_denom([np.sort(h) for h in lists], [np.sort(h) for h in lists], 1000, devices=mesh)
 assert compute_windows([3, 1, 2], 2) == [[1, 3], [1, 2]]
 """
 
 
 @pytest.mark.parametrize("module", [
-    "fpmash_tpu_torch.parallel.mesh", "fpmash_tpu_torch.parallel.sharded",
+    "fpmash_tpu_torch.device", "fpmash_tpu_torch.parallel.sharded",
     "fpmash_tpu_torch.utils.kfinger", "fpmash_tpu_torch.commands.common",
 ])
 def test_slice12_module_loads_no_jax(module):
@@ -188,14 +187,72 @@ def test_port_cli_registers_every_verb_of_the_jax_cli():
 def test_cuda_device_without_a_card_raises(monkeypatch, golden_dir, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):
-        resolve_device("cuda")
+        resolve_devices("cuda")
     txt = str(golden_dir / "cfl" / "DNA3-CFL.txt")
     with pytest.raises(RuntimeError, match="--device cpu"):
         port_main(["sketch", "-fp", txt, "-o", str(tmp_path / "x")])  # default is cuda
     assert not (tmp_path / "x.msh").exists()
-    assert resolve_device("cpu") == torch.device("cpu")
+    assert resolve_devices("cpu") == (torch.device("cpu"),)
     with pytest.raises(RuntimeError, match="unsupported"):
-        resolve_device("meta")
+        resolve_devices("meta")
+
+
+PORT = REPO / "fpmash_tpu_torch"
+
+
+def _port_imports(path: pathlib.Path):
+    """``(module, names)`` of every import of the port in ``path``, at any
+    depth: ``from fpmash_tpu_torch import device`` is the module
+    ``fpmash_tpu_torch.device``."""
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from ((a.name, []) for a in node.names if a.name.startswith("fpmash_tpu_torch."))
+        elif isinstance(node, ast.ImportFrom) and (node.module or "").startswith(
+                "fpmash_tpu_torch"):
+            if node.module == "fpmash_tpu_torch":
+                yield from ((f"fpmash_tpu_torch.{a.name}", []) for a in node.names)
+            else:
+                yield node.module, [a.name for a in node.names]
+
+
+def test_layers_import_one_way():
+    """The module graph reads ``commands -> models -> parallel -> ops``, with
+    ``device.py``, ``utils/trace.py`` and ``scalar/`` below them all: no
+    import points up, even one made inside a function.  Commands import no
+    private name of the layers below; the counted copies live in
+    ``device.py`` alone; ``screen`` and ``taxscreen`` count their queries'
+    k-mers through one route."""
+    below = {
+        "ops": {"ops", "device", "scalar", "utils.trace"},
+        "parallel": {"ops", "parallel", "device", "utils.trace"},
+        "models": {"models", "parallel", "ops", "device", "scalar", "utils"},
+        "device": {"utils.trace"},
+        "scalar": {"scalar"},
+    }
+    copies, wrong, reads = [], [], []
+    for path in sorted(PORT.rglob("*.py")):
+        rel = path.relative_to(PORT)
+        layer = rel.parts[0] if len(rel.parts) > 1 else rel.stem
+        tree = ast.parse(path.read_text())
+        copies += [(str(rel), f.name) for f in ast.walk(tree) if isinstance(f, ast.FunctionDef)
+                   and f.name in ("to_device", "to_host")]
+        reads += [str(rel) for node in ast.walk(tree) if isinstance(node, (ast.Call, ast.Subscript))
+                  and any(isinstance(c, ast.Constant) and c.value == "FPMASH_DEVICES"
+                          for c in ast.iter_child_nodes(node))]
+        for module, names in _port_imports(path):
+            target = module.split(".")[1]  # ops, parallel, ..., or device, cli
+            allowed = below.get(layer)
+            if allowed is not None and not ({target, ".".join(module.split(".")[1:3])}
+                                            & allowed):
+                wrong.append(f"{rel} imports {module}")
+            if layer == "commands" and target in ("models", "ops"):
+                wrong += [f"{rel} imports {module}.{n}" for n in names if n.startswith("_")]
+    assert wrong == []
+    assert sorted(copies) == [("device.py", "to_device"), ("device.py", "to_host")]
+    for command in ("screen_cmd.py", "taxscreen_cmd.py"):
+        imported = dict(_port_imports(PORT / "commands" / command))
+        assert "distinct_kmer_counts" in imported["fpmash_tpu_torch.models.sketch"], command
+    assert reads == ["device.py"]  # FPMASH_DEVICES, read where --device becomes devices
 
 
 @pytest.fixture

@@ -158,15 +158,15 @@ def test_record_stream_counts_what_the_record_path_counts(tmp_path):
         fh.write("".join(f">{n}\n{s}\n" for n, s in fq[:5]))
     paths = [str(tmp_path / f) for f in ("x.fa", "y.fq", "z.fa.gz")]
     p = port_sketch.SketchParams()
-    stream, records = port_sketch.record_stream(paths, K, CPU)
-    assert records == len(fa) + len(fq) + 5
-    from fpmash_tpu_torch.ops.bottomk import distinct_counts
-
-    values, counts = distinct_counts(port_sketch._kmer_hash_stream(stream, p, CPU))
+    stream, lengths = port_sketch.record_stream(paths, K, CPU)
+    assert len(lengths) == len(fa) + len(fq) + 5
+    assert int(lengths.sum()) == stream.numel() - (K - 1) * (len(lengths) - 1)
+    values, counts = port_sketch.distinct_kmer_counts(stream, lengths, p, (CPU,))
     seqs = [s for _, s in fa + fq + fq[:5] if len(s) >= K]
-    want_v, want_c = port_sketch._kmer_distinct_counts(seqs, p, CPU)
-    assert np.array_equal(values.numpy().view(np.uint64), want_v)
-    assert np.array_equal(counts.numpy(), want_c)
+    blob = torch.from_numpy(port_sketch._blob(seqs, K).copy())
+    want_v, want_c = port_sketch.distinct_kmer_counts(
+        blob, np.array([len(s) for s in seqs], np.int64), p, (CPU,))
+    assert torch.equal(values, want_v) and torch.equal(counts, want_c)
     assert (want_c > 1).any()
 
 

@@ -83,7 +83,7 @@ def test_sketch_from_arrays_equals_port_sketch(golden_dir, tmp_path):
     )
     own = port_sketch_mod.Sketch(port_sketch_mod.SketchParams().for_fingerprint())
     own.init_from_reads_fingerprint(
-        extract_reads(str(golden_dir / "cfl" / "DNA3.fasta"), rev_com=True), "CFL", device=CPU
+        extract_reads(str(golden_dir / "cfl" / "DNA3.fasta"), rev_com=True), "CFL", devices=(CPU,)
     )
     assert conv.params == own.params
     assert len(conv) == len(own) == 5
@@ -161,7 +161,7 @@ def test_line_cap_matches_jax(golden_dir, monkeypatch):
     monkeypatch.setattr(port_sketch_mod, "LIMIT_READ_FINGERPRINT", 2500)
     reads = extract_reads(str(golden_dir / "cfl" / "DNA3.fasta"), rev_com=True)
     port = port_sketch_mod.Sketch(port_sketch_mod.SketchParams().for_fingerprint())
-    port.init_from_reads_fingerprint(reads, device=CPU)
+    port.init_from_reads_fingerprint(reads, devices=(CPU,))
     jax = jax_sketch_mod.Sketch(jax_sketch_mod.SketchParams().for_fingerprint())
     jax.init_from_reads_fingerprint(reads)
     txt = [str(golden_dir / "cfl" / "DNA3-CFL.txt")]
@@ -211,7 +211,7 @@ def test_direct_fp_families_match_txt_route_and_jax(tmp_path, family):
     params = port_sketch_mod.SketchParams().for_fingerprint()
 
     port = port_sketch_mod.Sketch(params)
-    port.init_from_reads_fingerprint(reads, family, device=CPU)
+    port.init_from_reads_fingerprint(reads, family, devices=(CPU,))
     fp_lines, _ = jax_fingerprint_reads(reads, family, backend="scalar")
     (tmp_path / "fp.txt").write_text("".join(fp_lines))
     via_txt = port_sketch_mod.Sketch(params)

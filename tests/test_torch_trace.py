@@ -1,5 +1,5 @@
 """Port: the stage tracer (``utils/trace.py``) and the byte counters of the
-copies between host and device (``parallel/sharded.to_device``/``to_host``).
+copies between host and device (``device.to_device``/``to_host``).
 
 The record keeps every span with its start, end, parent, job, attributes and
 counters; the stderr line keeps its text; off, nothing is kept or printed.
@@ -15,7 +15,7 @@ from fpmash_tpu_torch.models import fingerprint
 from fpmash_tpu_torch.models.fingerprint import window_stream
 from fpmash_tpu_torch.models.sketch import sketch_from_arrays
 from fpmash_tpu_torch.ops import _build
-from fpmash_tpu_torch.parallel.sharded import to_device, to_host
+from fpmash_tpu_torch.device import to_device, to_host
 from fpmash_tpu_torch.utils import trace as trace_mod
 from fpmash_tpu_torch.utils.msh import MshFile, MshReference, read_msh, write_msh
 from fpmash_tpu_torch.utils.trace import count, trace

@@ -146,10 +146,10 @@ def test_triangle_takes_the_sorted_comparison_on_strict_lists(world, monkeypatch
     """Classic sketches (strictly increasing lists) go through K9; the
     sketch with repeated hashes, and the strictly increasing one whose
     lists end in 2^64 - 1 (K9's pad), through the walk K2."""
-    from fpmash_tpu_torch.ops import compare_cuda, walk
+    from fpmash_tpu_torch.ops import compare_cuda, walk_cuda
 
     calls = []
-    for mod, name in ((compare_cuda, "pairwise_common_denom"), (walk, "pairwise_walk")):
+    for mod, name in ((compare_cuda, "pairwise_common_denom"), (walk_cuda, "pairwise_walk")):
         orig = getattr(mod, name)
         monkeypatch.setattr(mod, name, lambda *a, _o=orig, _n=name: calls.append(_n) or _o(*a))
     with contextlib.redirect_stdout(io.StringIO()):
@@ -183,7 +183,8 @@ def test_screen_fp_matches_jax(world, opts):
 
 @pytest.mark.parametrize("k", [16, 21, 9], ids=["k16-32bit", "k21", "k9-32bit"])
 def test_kmer_distinct_counts_match_np_unique_of_jax_pool(k):
-    """screen's query side: every distinct hash and its multiplicity, with
+    """screen's and taxscreen's query side (``distinct_kmer_counts`` of the
+    records' stream): every distinct hash and its multiplicity, with
     invalid characters, record separators and duplicated records; k <= 16
     collapses the hashes to 32 bits before counting."""
     import fpmash_tpu.models.sketch as jax_sketch
@@ -196,8 +197,11 @@ def test_kmer_distinct_counts_match_np_unique_of_jax_pool(k):
         np.asarray(jax_sketch._kmer_hash_pool(seqs, jax_sketch.SketchParams(kmer_size=k), "auto"),
                    np.uint64), return_counts=True)
     p = port_sketch.SketchParams(kmer_size=k)
-    got_v, got_c = port_sketch._kmer_distinct_counts(seqs, p, CPU)
-    assert got_v.dtype == np.uint64 and got_c.dtype == np.int64
+    stream = torch.from_numpy(port_sketch._blob(seqs, k).copy())
+    values, counts = port_sketch.distinct_kmer_counts(
+        stream, np.array([len(s) for s in seqs], np.int64), p, (CPU,))
+    assert values.dtype == counts.dtype == torch.int64 and values.device == CPU
+    got_v, got_c = values.numpy().view(np.uint64), counts.numpy()
     assert np.array_equal(got_v, want_v) and np.array_equal(got_c, want_c)
     assert (got_c > 1).any()
     if not p.use64:

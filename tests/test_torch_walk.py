@@ -17,9 +17,9 @@ import pytest
 import torch
 from test_torch_walk_body import CASES, _case
 
+from fpmash_tpu_torch.models.distance import all_pairs_walk
 from fpmash_tpu_torch.models.distance import compare_sketches as port_compare_sketches
 from fpmash_tpu_torch.ops import walk_cuda
-from fpmash_tpu_torch.ops.walk import all_pairs_walk
 
 CPU = torch.device("cpu")
 
@@ -76,7 +76,7 @@ def test_all_pairs_walk_unsorted_matches_literal_and_jax(S):
     rng = np.random.default_rng(S)
     refs = [_rand_list(rng, int(rng.integers(0, 2 * S + 1))) for _ in range(7)]
     qrys = [_rand_list(rng, int(rng.integers(0, 2 * S + 1))) for _ in range(5)]
-    c, d = all_pairs_walk(refs, qrys, S, device=CPU)
+    c, d = all_pairs_walk(refs, qrys, S, devices=(CPU,))
     lc, ld = _literal(refs, qrys, S)
     jc, jd = jax_all_pairs_walk(refs, qrys, S)
     assert np.array_equal(c, lc) and np.array_equal(d, ld)
@@ -95,7 +95,7 @@ def test_all_pairs_walk_sorted_inputs():
         return np.sort(rng.choice(10**6, n, replace=False).astype(np.uint64))
     refs = [mk() for _ in range(6)]
     qrys = [mk() for _ in range(6)]
-    c, d = all_pairs_walk(refs, qrys, S, device=CPU)
+    c, d = all_pairs_walk(refs, qrys, S, devices=(CPU,))
     sc, sd = all_pairs_common_denom(refs, qrys, S)
     assert np.array_equal(c, sc) and np.array_equal(d, sd)
     lc, ld = _literal(refs, qrys, S)
@@ -105,10 +105,10 @@ def test_all_pairs_walk_sorted_inputs():
 def test_all_pairs_walk_empty_lists():
     refs = [np.array([], np.uint64), np.array([5, 3], np.uint64)]
     qrys = [np.array([3], np.uint64), np.array([], np.uint64)]
-    c, d = all_pairs_walk(refs, qrys, 10, device=CPU)
+    c, d = all_pairs_walk(refs, qrys, 10, devices=(CPU,))
     lc, ld = _literal(refs, qrys, 10)
     assert np.array_equal(c, lc) and np.array_equal(d, ld)
-    c, d = all_pairs_walk([], qrys, 10, device=CPU)
+    c, d = all_pairs_walk([], qrys, 10, devices=(CPU,))
     assert c.shape == d.shape == (0, 2)
 
 

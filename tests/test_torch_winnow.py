@@ -1,5 +1,5 @@
 """Port: the minmer selection (``ops/winnow.py``) and the per-position hashes
-of windowed sketches (``models/sketch._position_hashes``).
+of windowed sketches (``models/sketch.position_hashes``).
 
 The op is held against the JAX package's ``minmer_positions`` on both of its
 routes (numpy, and the XLA jit) and against the reference's incremental
@@ -19,7 +19,7 @@ import pytest
 import torch
 
 from fpmash_tpu_torch.models import sketch as port_sketch
-from fpmash_tpu_torch.models.sketch import SketchParams, _position_hashes
+from fpmash_tpu_torch.models.sketch import SketchParams, position_hashes
 from fpmash_tpu_torch.ops import kmers_cuda, winnow
 from fpmash_tpu_torch.ops.winnow import minmer_positions
 from fpmash_tpu_torch.scalar.murmur3 import hash_bytes
@@ -146,13 +146,13 @@ def test_position_hashes_equal_scalar_murmur_of_raw_bytes(k):
     rng = np.random.default_rng(k)
     seq = _mixed_seq(rng, 700)
     p = SketchParams(kmer_size=k, seed=7)
-    got = _position_hashes(seq, p, CPU).numpy().view(np.uint64).tolist()
+    got = position_hashes(seq, p, CPU).numpy().view(np.uint64).tolist()
     assert got == _scalar_position_hashes(seq, k, 7, p.use64)
     assert p.use64 == (k > 16)
     # a str and its bytes hash alike; shorter than k gives nothing
-    assert _position_hashes(seq.decode(), p, CPU).tolist() == \
-        _position_hashes(seq, p, CPU).tolist()
-    assert _position_hashes(seq[: k - 1], p, CPU).numel() == 0
+    assert position_hashes(seq.decode(), p, CPU).tolist() == \
+        position_hashes(seq, p, CPU).tolist()
+    assert position_hashes(seq[: k - 1], p, CPU).numel() == 0
 
 
 def test_position_hashes_equal_jax_scalar_route():
@@ -164,7 +164,7 @@ def test_position_hashes_equal_jax_scalar_route():
     for k, alphabet in ((21, "ACGT"), (12, "ACGT"), (5, "ACDEFGHIKLMNPQRSTVWY")):
         p = SketchParams(kmer_size=k, alphabet=alphabet)
         want = jax_position_hashes(seq, JaxParams(kmer_size=k, alphabet=alphabet), "scalar")
-        assert np.array_equal(_position_hashes(seq, p, CPU).numpy().view(np.uint64), want)
+        assert np.array_equal(position_hashes(seq, p, CPU).numpy().view(np.uint64), want)
 
 
 def test_position_hashes_cross_chunk_edges(monkeypatch):
@@ -174,7 +174,7 @@ def test_position_hashes_cross_chunk_edges(monkeypatch):
         monkeypatch.setitem(port_sketch._POSITION_CHUNK, "cpu", size)
         monkeypatch.setattr(port_sketch, "_REHASH_BATCH", 50)
         p = SketchParams(kmer_size=k)
-        got = _position_hashes(seq, p, CPU).numpy().view(np.uint64).tolist()
+        got = position_hashes(seq, p, CPU).numpy().view(np.uint64).tolist()
         assert got == _scalar_position_hashes(seq, k, 42, p.use64)
 
 
@@ -191,7 +191,7 @@ def test_jax_device_route_hashes_differ_on_n_and_lower_case():
     dev = jax_position_hashes(mixed, p, "jax")
     scal = jax_position_hashes(mixed, p, "scalar")
     assert (dev != scal).sum() > 0
-    port = _position_hashes(mixed, SketchParams(), CPU).numpy().view(np.uint64)
+    port = position_hashes(mixed, SketchParams(), CPU).numpy().view(np.uint64)
     assert np.array_equal(port, scal)
     pure = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, size=300)].tobytes().decode()
     assert np.array_equal(jax_position_hashes(pure, p, "jax"),
@@ -347,7 +347,7 @@ def test_position_hashes_on_card_equal_scalar_murmur(cuda_device, k, monkeypatch
     for size in (1 << 24, 1024):
         monkeypatch.setitem(port_sketch._POSITION_CHUNK, "cuda", size)
         before = kmers_cuda.LAUNCHES[key]
-        got = _position_hashes(seq, p, cuda_device).cpu().numpy().view(np.uint64).tolist()
+        got = position_hashes(seq, p, cuda_device).cpu().numpy().view(np.uint64).tolist()
         assert got == _scalar_position_hashes(seq, k, 42, p.use64)
         if k <= 32:
             assert kmers_cuda.LAUNCHES[key] > before
