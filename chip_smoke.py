@@ -31,7 +31,12 @@ from the file (K5), the CRLF and whitespace edge files sketched and
 fingerprinted on the card against digests of the JAX CLI's outputs, and
 ``fingerprint --type generalized ICFL_COMB`` of 2 000 reads of 10 000 bases
 at ``--split 2000`` (every chunk on the host factorizer) and ``--split 300``
-(K3).  The five
+(K3).  The record-stream kernel (``csrc/seq_stream.cu``, which parses
+the query files of ``screen`` and ``taxscreen`` on the card) runs in the
+classic path's ``screen`` and is held against its plain version and the
+native reader on a FASTQ of 1 000 000 reads of 150 bases, the screen cell's
+read set, with its time, its bound and the file's read and upload beside
+it.  The five
 kernels that the JAX package keeps unrouted run through the entry points of
 the JAX functions they replace, at those paths' shapes and on their data:
 K13 (``fingerprint_hashes_fused(variant="inline")``) on the CFL path's
@@ -483,12 +488,14 @@ def _reset_counts():
         fused_cuda,
         icfl_cuda,
         kmers_cuda,
+        seq_stream,
         sort_cuda,
         walk_cuda,
         winnow,
     )
 
     fused_cuda.LAUNCHES = 0
+    seq_stream.LAUNCHES = 0
     winnow.LAUNCHES = 0
     winnow.LAUNCH_SHAPES.clear()
     fused_cuda.INLINE_LAUNCHES = 0
@@ -506,6 +513,7 @@ def _launches() -> dict:
         fused_cuda,
         icfl_cuda,
         kmers_cuda,
+        seq_stream,
         sort_cuda,
         walk_cuda,
         winnow,
@@ -513,7 +521,8 @@ def _launches() -> dict:
 
     out = {"fingerprint": fused_cuda.LAUNCHES, "fingerprint_inline": fused_cuda.INLINE_LAUNCHES,
            "walk": walk_cuda.LAUNCHES, "compare": compare_cuda.LAUNCHES,
-           "row_sort": sort_cuda.LAUNCHES, "winnow": winnow.LAUNCHES}
+           "row_sort": sort_cuda.LAUNCHES, "winnow": winnow.LAUNCHES,
+           "seq_stream": seq_stream.LAUNCHES}
     for key, n in icfl_cuda.LAUNCHES.items():
         out["hash_words" if key == "hash_words" else f"factor_words:{key}"] = n
     for key, n in kmers_cuda.LAUNCHES.items():
@@ -1007,7 +1016,7 @@ def phase_icfl_main_shapes(dev, work: Path, seqs_a):
 GENOME_LEN, SHORT_READ, COVERAGE = 5_000_000, 150, 10
 #: the kernels the classic main path must launch (keys of _launches())
 CLASSIC_PATH_KERNELS = ("kmer:topk8", "kmer:masked", "kmer:planes_k16", "kmer:planes_k32",
-                        "compare")
+                        "compare", "seq_stream")
 
 
 def _mixed_dna(rng, n: int):
@@ -1337,6 +1346,7 @@ def phase_classic_main_path(dev, rng, work: Path):
     walls, spans, printed = {}, {}, {}
     trace_mod.enable(True)  # the stage spans go to stderr, captured below
     _reset_counts()
+    kept = len(trace_mod.spans())
     for name, argv in commands.items():
         err, std = io.StringIO(), io.StringIO()
         t0 = time.perf_counter()
@@ -1353,6 +1363,11 @@ def phase_classic_main_path(dev, rng, work: Path):
     missing = [key for key in CLASSIC_PATH_KERNELS if launches[key] < 1]
     if missing:
         raise AssertionError(f"the classic main path did not launch {missing}: {launches}")
+    # screen's one plain FASTQ is parsed on the card, none on the host
+    streams = [sp.counters for sp in trace_mod.spans()[kept:] if sp.name == "record-stream"]
+    if [(c.get("card_files"), c.get("host_files", 0)) for c in streams] != [(1, 0)]:
+        raise AssertionError(f"screen's record-stream counters: {streams}")
+    print(f"classic main path: screen's record-stream counters {streams[0]}")
 
     t0 = time.perf_counter()
 
@@ -2611,6 +2626,91 @@ def phase_windowed_find(dev, rng, work: Path):
 
 #: the host-verb phase's taxonomy: root, a genus, a species and one strain
 #: for each golden genome sketch (``mash_ref/genome{1,2,3}.fna.msh``)
+#: the screen cell's read set: a FASTQ of 1 000 000 reads of 150 bases (315 MB)
+SCREEN_READS, SCREEN_READ_LEN = 1_000_000, 150
+
+
+def _fastq_bytes(rng, n_reads: int, read_len: int) -> bytes:
+    """A FASTQ of random ACGT reads laid out as the screen cell's generator
+    writes them: ``@s0r<index>`` headers, ``+`` lines, ``I`` qualities."""
+    import numpy as np
+
+    digits = len(str(n_reads - 1))
+    ids = (np.arange(n_reads)[:, None] // 10 ** np.arange(digits - 1, -1, -1)) % 10 + 48
+    col = lambda text: np.frombuffer(text, np.uint8)[None, :].repeat(n_reads, 0)  # noqa: E731
+    reads = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, (n_reads, read_len))]
+    return np.concatenate([col(b"@s0r"), ids.astype(np.uint8), col(b"\n"), reads,
+                           col(b"\n+\n"), col(b"I" * read_len), col(b"\n")], axis=1).tobytes()
+
+
+def phase_seq_stream(dev, rng, work: Path) -> dict:
+    """The record-stream kernel (``csrc/seq_stream.cu``) at the screen
+    cell's shape: a FASTQ of 1 000 000 reads of 150 bases read to the card
+    (``device.file_to_device``, pinned chunks) and parsed there, held against
+    the plain version on the card and the native reader's records on the
+    host; the kernel's time through the wrapper against its bound (the
+    file read once, the stream and the lengths written once) and the plain
+    version's; the file's read and upload alone and ``record_stream`` whole
+    (host clock, the page cache warm), beside the native reader's parse of
+    the same file."""
+    import numpy as np
+    import torch
+
+    from fpmash_tpu_torch.device import file_to_device
+    from fpmash_tpu_torch.models.sketch import record_stream
+    from fpmash_tpu_torch.ops import seq_stream as ops_seq
+    from fpmash_tpu_torch.utils.native import parse_seq_file
+
+    path = work / "screen_reads.fq"
+    path.write_bytes(_fastq_bytes(rng, SCREEN_READS, SCREEN_READ_LEN))
+
+    def wall_ms(fn, reps: int) -> float:
+        walls = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(walls))
+
+    upload = lambda: file_to_device(str(path), dev, ops_seq.LEADING_BLANKS)  # noqa: E731
+    data = upload()
+    before = ops_seq.LAUNCHES
+    stream, lengths = ops_seq.seq_stream(data, 21)
+    torch.cuda.synchronize()
+    launches = ops_seq.LAUNCHES - before
+    want = ops_seq.seq_stream_plain(data, 21)
+    if not (torch.equal(stream, want[0]) and torch.equal(lengths, want[1])):
+        raise AssertionError("seq_stream differs from its plain version on the screen FASTQ")
+    _, _, blob, offsets = parse_seq_file(str(path))
+    lens = lengths.cpu().numpy()
+    if not np.array_equal(lens, np.diff(offsets)):
+        raise AssertionError("seq_stream's lengths differ from the native reader's")
+    seq = stream.cpu().numpy()
+    keep = np.ones(seq.size, bool)
+    seps = (np.arange(1, SCREEN_READS) * (SCREEN_READ_LEN + 20))[:, None] - 20 + np.arange(20)
+    keep[seps.ravel()] = False
+    if (seq[~keep] != 0).any() or not np.array_equal(seq[keep], np.frombuffer(blob, np.uint8)):
+        raise AssertionError("seq_stream's stream differs from the native reader's records")
+    del seq, keep, blob
+    n = data.numel()
+    rec = {"ms": _time_ms(lambda: ops_seq.seq_stream(data, 21), reps=10),
+           "plain_ms": _time_ms(lambda: ops_seq.seq_stream_plain(data, 21), reps=2),
+           **_bound(n + stream.numel() + 8 * lengths.numel(), 0),
+           "file_bytes": path.stat().st_size, "stream_bytes": stream.numel(),
+           "launches_per_file": launches, "max_abs_err": 0,
+           "read_upload_ms": wall_ms(upload, 5),
+           "record_stream_ms": wall_ms(lambda: record_stream([str(path)], 21, dev), 5),
+           "native_parse_ms": wall_ms(lambda: parse_seq_file(str(path)), 3)}
+    print(f"seq_stream: {SCREEN_READS} x {SCREEN_READ_LEN} FASTQ ({rec['file_bytes']} bytes): "
+          f"kernel {rec['ms']:.4f} ms (bound {rec['bound_ms']:.4f} ms), plain "
+          f"{rec['plain_ms']:.2f} ms; read and upload {rec['read_upload_ms']:.2f} ms, "
+          f"record_stream {rec['record_stream_ms']:.2f} ms, native parse "
+          f"{rec['native_parse_ms']:.2f} ms; {launches} launches a file")
+    path.unlink()
+    return rec
+
+
 TAX_NODES = ("1\t|\t1\t|\tno rank\t|\n561\t|\t1\t|\tgenus\t|\n"
              "562\t|\t561\t|\tspecies\t|\n11\t|\t562\t|\tstrain\t|\n"
              "12\t|\t562\t|\tstrain\t|\n13\t|\t562\t|\tstrain\t|\n")
@@ -3160,6 +3260,7 @@ def main() -> int:
     k8["windowed_launches"] = windowed_launches["kmer:planes_k16"]
     phase_host_verbs(work)
     phase_native_host(dev, rng, work, smi)
+    seq_rec = phase_seq_stream(dev, rng, work)
 
     src = "fpmash_tpu_torch/csrc/"
     kernels = [
@@ -3199,6 +3300,10 @@ def main() -> int:
         {"name": "winnow", "route": "cuda", "source": src + "winnow.cu",
          "replaces": "fpmash_tpu/ops/winnow.py:105", "launches": windowed_launches["winnow"],
          **minmer},
+        # no device op: the JAX package parses query files on the host
+        {"name": "seq_stream", "route": "cuda", "source": src + "seq_stream.cu",
+         "replaces": "fpmash_tpu/utils/native.py parse_seq_file (host)",
+         "launches": classic_launches["seq_stream"], **seq_rec},
     ]
     # unrouted in the JAX package: launched by their phases through the
     # entry points of the JAX functions they replace

@@ -24,8 +24,9 @@ package brings them to the host: the reference sketch is read as columns
 (``utils/msh.read_columns``, no Python object a reference), its file's words
 go up once, and the CSR array (every reference's hashes back to back, and
 each one's count) is gathered from them there; it gives the distinct count of
-the ``Loading`` line; the query files become one record stream
-(``models/sketch.record_stream``), whose k-mers are hashed (K7/K8) and
+the ``Loading`` line; the query files go up as their bytes and become one
+record stream there (``models/sketch.record_stream``: the record-stream
+kernel, ``csrc/seq_stream.cu``), whose k-mers are hashed (K7/K8) and
 counted there, sorted (``models/sketch.distinct_kmer_counts``, which
 ``taxscreen`` shares); one ``searchsorted`` of every reference hash in the
 query's distinct values gives the hits, and segment sums the shared counts.

@@ -5,7 +5,8 @@ Reference taxIDs come from a ``-m`` mapping file (``taxID<TAB>refName``
 lines) or a ``taxid <N>`` token in each reference's comment; each shared
 hash is assigned the LCA of the references containing it; counts roll up
 the taxonomy and print as a Kraken report.  The pool files become one
-record stream (``models/sketch.record_stream``), whose k-mers are hashed
+record stream on ``--device`` (``models/sketch.record_stream``: a plain
+file's bytes parsed there), whose k-mers are hashed
 and counted on ``--device`` (``models/sketch.distinct_kmer_counts``, the
 query side of ``screen``: K7 or K8, then the distinct values and their
 counts).  Flags, defaults and output

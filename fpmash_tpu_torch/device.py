@@ -10,19 +10,24 @@ devices: a non-empty tuple of ``torch.device``.  A route that can shard
 takes the tuple as ``devices`` and gathers its results on ``devices[0]``;
 a route that cannot takes ``devices[0]`` as ``device``.
 
-:func:`to_device` and :func:`to_host` are the copies across the bus, each
-counted on the open span (``utils/trace.py``).
+:func:`to_device`, :func:`file_to_device` and :func:`to_host` are the
+copies across the bus, each counted on the open span (``utils/trace.py``).
 """
 
 from __future__ import annotations
 
 import os
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from fpmash_tpu_torch.utils.trace import count
+
+#: :func:`file_to_device`'s pinned buffers: bytes of each, how many take
+#: turns, and the threads that read into them
+UPLOAD_CHUNK, UPLOAD_STAGES, UPLOAD_READERS = 8 << 20, 8, 4
 
 
 def resolve_devices(name: str | torch.device) -> tuple[torch.device, ...]:
@@ -68,6 +73,90 @@ def to_device(a, dev) -> torch.Tensor:
     if a.device.type == "cpu":
         count("h2d_bytes", a.nbytes)
     return a.to(dev)
+
+
+def _pread(fd: int, buf: np.ndarray, offset: int) -> int:
+    """Read the file ``fd`` from ``offset`` into ``buf`` until it is full or
+    the file ends; the bytes read."""
+    view, got = memoryview(buf), 0
+    while got < len(view):
+        step = os.preadv(fd, [view[got:]], offset + got)
+        if not step:
+            break
+        got += step
+    return got
+
+
+def _first_kept(buf: np.ndarray, skip: np.ndarray) -> int:
+    """Index of the first byte of ``buf`` not in ``skip``, or ``len(buf)``."""
+    for pos in range(0, len(buf), 4096):
+        kept = np.flatnonzero(~np.isin(buf[pos : pos + 4096], skip))
+        if kept.size:
+            return pos + int(kept[0])
+    return len(buf)
+
+
+def file_to_device(path: str, dev, lstrip: bytes) -> torch.Tensor:
+    """The bytes of the file ``path`` after its leading run of bytes in
+    ``lstrip``, as a ``uint8`` tensor on ``dev``; they count as
+    ``h2d_bytes`` of the open span (see :func:`to_device`).
+
+    To a card the file goes in chunks of ``UPLOAD_CHUNK`` bytes, read by
+    ``UPLOAD_READERS`` threads (``os.preadv`` lets go of the GIL) into
+    ``UPLOAD_STAGES`` pinned buffers in turn (PyTorch's caching host
+    allocator keeps them across calls) and copied in order, without
+    blocking, into one device buffer; a buffer is read into again once the
+    event after its copy has passed, so the copies overlap the reads.  On
+    the CPU the file is read straight into the tensor."""
+    dev = torch.device(dev)
+    skip = np.frombuffer(lstrip, np.uint8)
+    size = os.path.getsize(path)
+    out = torch.empty(size, dtype=torch.uint8, device=dev)
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        if dev.type == "cpu":
+            host = out.numpy()
+            got = _pread(fd, host, 0)
+            lead = _first_kept(host[:got], skip)
+            count("h2d_bytes", got - lead)
+            return out[lead:got]
+        filled = _upload(fd, size, out, skip)
+    finally:
+        os.close(fd)
+    count("h2d_bytes", filled)
+    return out[:filled]
+
+
+def _upload(fd: int, size: int, out: torch.Tensor, skip: np.ndarray) -> int:
+    """:func:`file_to_device`'s chunked copy of the file ``fd`` of ``size``
+    bytes into the card tensor ``out``; the bytes copied."""
+    chunks = -(-size // UPLOAD_CHUNK)
+    stages = [torch.empty(UPLOAD_CHUNK, dtype=torch.uint8, pin_memory=True)
+              for _ in range(min(UPLOAD_STAGES, chunks))]
+    filled, kept = 0, not skip.size
+
+    def read(after: torch.cuda.Event | None, i: int) -> int:
+        if after is not None:
+            after.synchronize()
+        at = i * UPLOAD_CHUNK
+        return _pread(fd, stages[i % len(stages)].numpy()[: min(UPLOAD_CHUNK, size - at)], at)
+
+    with torch.cuda.device(out.device), ThreadPoolExecutor(UPLOAD_READERS) as pool:
+        stream = torch.cuda.current_stream(out.device)
+        reads = {i: pool.submit(read, None, i) for i in range(len(stages))}
+        for i in range(chunks):
+            got = reads.pop(i).result()
+            host = stages[i % len(stages)]
+            lead = 0 if kept else _first_kept(host.numpy()[:got], skip)
+            kept = kept or lead < got
+            if lead < got:
+                out[filled : filled + got - lead].copy_(host[lead:got], non_blocking=True)
+                filled += got - lead
+            copied = torch.cuda.Event()
+            copied.record(stream)
+            if i + len(stages) < chunks:
+                reads[i + len(stages)] = pool.submit(read, copied, i + len(stages))
+    return filled
 
 
 def to_host(t: torch.Tensor) -> np.ndarray:

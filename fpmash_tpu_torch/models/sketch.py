@@ -45,6 +45,7 @@ are a model's; :func:`sketch_from_arrays` builds one from plain fields.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field, replace
 from functools import partial
 from typing import Iterable, Mapping
@@ -52,7 +53,7 @@ from typing import Iterable, Mapping
 import numpy as np
 import torch
 
-from fpmash_tpu_torch.device import to_device, to_host
+from fpmash_tpu_torch.device import file_to_device, to_device, to_host
 from fpmash_tpu_torch.ops.bottomk import distinct_counts
 from fpmash_tpu_torch.parallel.sharded import shard_windows
 from fpmash_tpu_torch.utils.trace import trace
@@ -847,44 +848,47 @@ def record_stream(paths: list[str], k: int, device) -> tuple[torch.Tensor, np.nd
     """The records of the sequence files ``paths``, in order, as one ``uint8``
     stream on ``device`` separated by ``k - 1`` NUL bytes, the stream that
     :func:`_blob` makes of their sequences; and the records' lengths (host
-    ``int64``).  Traced as ``record-stream``.
+    ``int64``).  Traced as ``record-stream``, with the counters
+    ``file_bytes`` and ``card_files`` (the plain files, parsed where the
+    stream goes) and ``host_files`` (the others).
 
-    A plain file's records come from the native reader as one buffer and
-    its offsets (``utils/native.parse_seq_file``), with no Python object a
-    record; ``.gz`` and ``-`` through the Python reader.  The records go to
-    the device back to back, and the separators are put in there by one
-    scatter.  A record shorter than ``k`` stays in: no
-    window that touches it is valid, so the k-mers are those of the stream
-    without it.
+    A plain file is not parsed on the host: its bytes go to the device
+    (``device.file_to_device``, span ``seq-read``), and
+    ``ops/seq_stream.seq_stream`` reads its records there as the native
+    reader (``utils/native.parse_seq_file``) reads them, its lengths brought
+    back once (span ``seq-parse``).  ``.gz`` and ``-`` go through the Python
+    reader.  The files' streams are joined with ``k - 1`` NUL bytes between
+    them.  A record shorter than ``k`` stays in: no window that touches it
+    is valid, so the k-mers are those of the stream without it.
     """
+    from fpmash_tpu_torch.ops.seq_stream import LEADING_BLANKS, seq_stream
     from fpmash_tpu_torch.utils.fasta import read_sequences, reader
+    from fpmash_tpu_torch.utils.trace import count
 
     with trace("record-stream", files=len(paths)):
-        data, lengths = [], []
+        parts, lengths = [], []
         for path in paths:
             if reader(path) == "native":
-                from fpmash_tpu_torch.utils.native import parse_seq_file
-
-                _, _, blob, offsets = parse_seq_file(path)
-                data.append(np.frombuffer(blob, np.uint8))
-                lengths.append(np.diff(offsets))
+                count("card_files", 1)
+                count("file_bytes", os.path.getsize(path))
+                with trace("seq-read"):
+                    data = file_to_device(path, device, LEADING_BLANKS)
+                with trace("seq-parse"):
+                    stream, lens = seq_stream(data, k)
+                    lens = to_host(lens)
             else:
+                count("host_files", 1)
                 seqs = [r.seq.encode("ascii", "replace") for r in read_sequences(path)]
-                data.append(np.frombuffer(b"".join(seqs), np.uint8))
-                lengths.append(np.fromiter(map(len, seqs), np.int64, len(seqs)))
-        data = data[0] if len(data) == 1 else np.concatenate(data)
-        lengths = np.concatenate(lengths) if lengths else np.zeros(0, np.int64)
-        records = len(lengths)
-        body = to_device(data, device)
-        if records <= 1 or k == 1:
-            return body, lengths
-        ids = torch.repeat_interleave(torch.arange(records, device=body.device),
-                                      to_device(lengths, device), output_size=body.numel())
-        where = ids.mul_(k - 1).add_(torch.arange(body.numel(), device=body.device))
-        stream = torch.zeros(body.numel() + (k - 1) * (records - 1), dtype=torch.uint8,
-                             device=body.device)
-        stream[where] = body
-        return stream, lengths
+                stream = to_device(_blob(seqs, k), device)
+                lens = np.fromiter(map(len, seqs), np.int64, len(seqs))
+            if len(lens):
+                parts.append(stream)
+                lengths.append(lens)
+        if not parts:
+            return torch.zeros(0, dtype=torch.uint8, device=device), np.zeros(0, np.int64)
+        sep = torch.zeros(k - 1, dtype=torch.uint8, device=parts[0].device)
+        joined = [x for part in parts for x in (sep, part)][1:]
+        return joined[0] if len(joined) == 1 else torch.cat(joined), np.concatenate(lengths)
 
 
 def translated_stream(paths: list[str], p: SketchParams) -> tuple[torch.Tensor, np.ndarray]:

@@ -76,6 +76,12 @@ _SIGNATURES = {
     # stage, scratch_idx, scratch_flag, scratch_cap, marks, stream
     "fpmash_winnow": [_p, _p, _i64, _i64, _i32, _i64, _i64, _i64, _i32, _i32, _i32, _i32, _p,
                       _p, _i64, _p, _p],
+    # data, n, tile_nl, stream
+    "fpmash_seq_newlines": [_p, _i64, _p, _p],
+    # data, n, tile_nl, n_lines, line_start, meta, seq_len, blk, out_off, starts, k, stream
+    "fpmash_seq_lines": [_p, _i64, _p, _i64, _p, _p, _p, _p, _p, _p, _i32, _p],
+    # data, n, tile_nl, line_start, seq_len, out_off, starts, meta, k, out, lengths, stream
+    "fpmash_seq_copy": [_p, _i64, _p, _p, _p, _p, _p, _p, _i32, _p, _p, _p],
 }
 
 

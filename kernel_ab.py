@@ -56,7 +56,13 @@ at the main paths' shapes on inputs made from a fixed seed:
   ``minmer_marks_plain`` before it is timed;
   beside each, the device time of the same calls by kernel
   (``winnow_*_device_ms``, ``torch.profiler``), without the host's share
-  of the wrapper.
+  of the wrapper;
+* the screen cell's read set, a FASTQ of 1 000 000 reads of 150 bases
+  (``chip_smoke._fastq_bytes``, written once into ``build/``):
+  ``record_stream`` of the file at k = 21 on the host clock
+  (``record_stream_ms``, the median of 5 warm calls), and where the tree has
+  it the record-stream kernel on the file's bytes on the card
+  (``seq_stream_ms``) and its plain version (``seq_stream_plain_ms``).
 
 Runs go A B B A in each round, so both trees meet the card in the same
 states.  ``--only`` times just the keys that start with one of its
@@ -122,8 +128,11 @@ def worker(tree: Path, only: list[str]) -> dict:
         N_ALL,
         N_CHUNKS,
         N_QRY,
+        SCREEN_READ_LEN,
+        SCREEN_READS,
         SKETCH,
         _chunk_stream,
+        _fastq_bytes,
         _cluster_lists,
         _factor_launch,
         _fingerprint_launch,
@@ -231,7 +240,49 @@ def worker(tree: Path, only: list[str]) -> dict:
             out[key] = (h, prev_occurrence(h), ws, mins)
         return out
 
+    @functools.lru_cache(maxsize=None)
+    def screen_fastq() -> str:
+        """The screen cell's read set as a file, written once for every tree."""
+        path = ROOT / "build" / "kernel_ab_screen_reads.fq"
+        if not path.exists():
+            path.parent.mkdir(parents=True, exist_ok=True)
+            tmp = path.with_suffix(".tmp")
+            tmp.write_bytes(_fastq_bytes(np.random.default_rng(2029), SCREEN_READS,
+                                         SCREEN_READ_LEN))
+            tmp.replace(path)
+        return str(path)
+
+    def seq_stream_ms(plain: bool):
+        """The record-stream kernel (or its plain version) on the file's bytes
+        on the card; None for a tree without it."""
+        try:
+            from fpmash_tpu_torch.ops import seq_stream
+        except ImportError:
+            return None
+        from fpmash_tpu_torch.device import file_to_device
+
+        data = file_to_device(screen_fastq(), dev, seq_stream.LEADING_BLANKS)
+        fn = seq_stream.seq_stream_plain if plain else seq_stream.seq_stream
+        return _time_ms(lambda: fn(data, K_WIDE), reps=2 if plain else 10)
+
+    def record_stream_ms() -> float:
+        """Host wall of ``record_stream`` of the file (median of 5, warm)."""
+        import time
+
+        from fpmash_tpu_torch.models.sketch import record_stream
+
+        walls = []
+        for _ in range(6):
+            t0 = time.perf_counter()
+            record_stream([screen_fastq()], K_WIDE, dev)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(walls[1:]))
+
     timings = {
+        "seq_stream_ms": lambda: seq_stream_ms(False),
+        "seq_stream_plain_ms": lambda: seq_stream_ms(True),
+        "record_stream_ms": record_stream_ms,
         "k2_ms": lambda: _time_ms(lambda: walk_cuda.pairwise_walk(*fp_walk)),
         "k2_launch_ms": lambda: _time_ms(_walk_launch(*fp_walk)),
         "k2_tile_ms": lambda: _time_ms(lambda: walk_cuda.pairwise_walk(*tile_walk), reps=3),

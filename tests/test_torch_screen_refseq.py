@@ -17,11 +17,13 @@ counts, the hits and the query's ``s`` smallest values.
 import contextlib
 import gzip
 import io
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from bench_port.checks import screen_lines
 from bench_port.harness import spec
 from bench_port.reference import screen as ref_screen
@@ -232,3 +234,191 @@ def test_screen_loads_the_database_as_columns(world, monkeypatch):
     want = ref_screen.screen(world["big.msh"], world["query"], K, S, winner=True)
     assert len(want) >= 3
     assert [g[:5] for g in got] == [w[:5] for w in want]
+
+
+# --------------------------------------------------------------------- #
+# the record stream built from a file's bytes (ops/seq_stream.py)
+# --------------------------------------------------------------------- #
+
+GOLDEN = Path(__file__).parent / "golden"
+GOLDENS = ["cfl/DNA3.fasta", "new_data/reads1.fastq", "lyn2vec_basic/example_transcripts_genes.fa"]
+
+
+def _stream_cases() -> dict:
+    """``{name: bytes}``: the goldens, the edge files, and files at the
+    places where the native reader stops, skips or trims."""
+    rng = np.random.default_rng(31)
+    dna = lambda n: np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, n)].tobytes()  # noqa: E731
+    fq = b"".join(b"@r%d c\n%s\n+\n%s\n" % (i, s, b"I" * len(s))
+                  for i, s in enumerate(dna(int(n)) for n in rng.integers(1, 200, 30)))
+    cases = {f"golden:{name}": (GOLDEN / name).read_bytes() for name in GOLDENS}
+    cases.update({f"edge:{name}": data for name, data in chip_smoke.edge_files().items()})
+    cases.update({
+        "fq_no_final_newline": fq[:-1],
+        "fq_cut_after_header": fq + b"@tail c\n",
+        "fq_cut_in_header": fq + b"@tail",
+        "fq_cut_after_sequence": fq + b"@tail\n" + dna(40) + b"\n",
+        "fq_cut_in_sequence": fq + b"@tail\n" + dna(40),
+        "fq_header_without_at": fq.replace(b"@r7 c", b"r7 c", 1),
+        "fq_quality_at_signs": b"@a\nACGTAC\n+\n@@@@@@\n@b\nGGGG\n+\n@@@@\n",
+        "fq_leading_blank_lines": b"\n\r\n  \n" + fq,
+        "fq_short_records": b"@a\nACG\n+\nIII\n@b\n\n+\n\n@c\nACGTACGTACGTACGTACGTACGT\n+\nx\n",
+        "fq_blank_at_record": fq[: len(fq) // 2] + b"\n" + fq[len(fq) // 2 :],
+        "fa_leading_blank_lines": b" \n\n\r\n>a x\n" + dna(70) + b"\n" + dna(30) + b"\n>b\n"
+                                  + dna(90) + b"\n",
+        "fa_empty_record": b">a\n" + dna(50) + b"\n>empty\n>b c\n" + dna(20) + b"\n>\n\n",
+        "fa_short_record": b">a\nACGTACGTACGT\n>b\n" + dna(100) + b"\n>c\nAC\n",
+        "fa_header_last_line": b">a\n" + dna(60) + b"\n>last",
+        "fa_header_last_line_newline": b">a\n" + dna(60) + b"\n>last\n",
+        "fa_no_header_first": b"ACGT\n>a\n" + dna(20) + b"\n",
+        "fa_carriage_returns": b">a\r\n" + dna(30) + b"\r\r\n\r\n" + dna(5) + b"\r\n>b\r\n\r",
+        "fa_long_lines": b"".join(b">g%d\n%s\n" % (i, dna(int(n)))
+                                  for i, n in enumerate(rng.integers(1, 20_000, 12))),
+        "fa_wrapped": b">w\n" + b"\n".join(dna(60) for _ in range(300)) + b"\n",
+        "blank_only": b"\n\r\n \n",
+        "empty": b"",
+        "one_header": b">only",
+        "at_only": b"@",
+    })
+    return cases
+
+
+STREAM_CASES = _stream_cases()
+
+
+def _old_join(paths, k):
+    """The stream and lengths as the parent's ``record_stream`` made them: each
+    plain file's records from ``parse_seq_file``'s blob and offsets, a ``.gz``
+    file's from the Python reader, all joined with ``k - 1`` NUL bytes."""
+    from fpmash_tpu_torch.utils.fasta import read_sequences
+    from fpmash_tpu_torch.utils.native import parse_seq_file
+
+    seqs = []
+    for path in map(str, paths):
+        if path.endswith(".gz"):
+            seqs += [r.seq.encode("ascii", "replace") for r in read_sequences(path)]
+        else:
+            _, _, blob, offsets = parse_seq_file(path)
+            seqs += [blob[a:b] for a, b in zip(offsets[:-1].tolist(), offsets[1:].tolist())]
+    return (b"\0" * (k - 1)).join(seqs), [len(s) for s in seqs]
+
+
+def _stripped(data: bytes) -> torch.Tensor:
+    return torch.from_numpy(np.frombuffer(data.lstrip(b"\n\r "), np.uint8).copy())
+
+
+@pytest.mark.parametrize("k", [21, 1])
+@pytest.mark.parametrize("name", list(STREAM_CASES))
+def test_plain_record_stream_equals_the_native_readers_join(tmp_path, name, k):
+    """The plain version (``ops/seq_stream.seq_stream_plain``) and
+    ``record_stream`` on the CPU give, byte for byte, the parent's join of
+    ``parse_seq_file``'s blob and offsets."""
+    from fpmash_tpu_torch.ops.seq_stream import seq_stream_plain
+
+    path = tmp_path / "in.fx"
+    path.write_bytes(STREAM_CASES[name])
+    want, want_len = _old_join([path], k)
+    stream, lengths = seq_stream_plain(_stripped(STREAM_CASES[name]), k)
+    assert bytes(stream.numpy()) == want and lengths.tolist() == want_len
+    stream, lengths = port_sketch.record_stream([str(path)], k, CPU)
+    assert bytes(stream.numpy()) == want and lengths.tolist() == want_len
+
+
+def _mixed_files(d) -> list[str]:
+    """FASTA, FASTQ and ``.gz`` files in one list, with an empty file and
+    one of no records among them."""
+    names = ["fa_empty_record", "fq_cut_after_header", "empty", "fa_wrapped", "fa_no_header_first",
+             "golden:new_data/reads1.fastq"]
+    paths = []
+    for i, name in enumerate(names):
+        paths.append(d / f"{i}.fx")
+        paths[-1].write_bytes(STREAM_CASES[name])
+    with gzip.open(d / "z.fa.gz", "wb") as fh:
+        fh.write(STREAM_CASES["fa_long_lines"])
+    paths.insert(2, d / "z.fa.gz")
+    return [str(p) for p in paths]
+
+
+@pytest.mark.parametrize("k", [21, 16, 1])
+def test_record_stream_of_mixed_files_equals_the_native_readers_join(tmp_path, monkeypatch, k):
+    """A list that mixes FASTA, FASTQ and ``.gz`` joins as the parent joined
+    it; the span counts the plain files as ``card_files`` and their bytes as
+    ``file_bytes``, the ``.gz`` one as ``host_files``, and reads and parses
+    each plain file in ``seq-read`` and ``seq-parse`` inside it."""
+    paths = _mixed_files(tmp_path)
+    want, want_len = _old_join(paths, k)
+    monkeypatch.setattr(port_trace, "_ENABLED", True)
+    port_trace.clear()
+    stream, lengths = port_sketch.record_stream(paths, k, CPU)
+    spans = port_trace.spans()
+    port_trace.clear()
+    assert bytes(stream.numpy()) == want and lengths.tolist() == want_len
+    (top,) = [s for s in spans if s.name == "record-stream"]
+    plain = [p for p in paths if not p.endswith(".gz")]
+    assert top.counters["card_files"] == len(plain) and top.counters["host_files"] == 1
+    assert top.counters["file_bytes"] == sum(Path(p).stat().st_size for p in plain)
+    for name in ("seq-read", "seq-parse"):
+        inner = [s for s in spans if s.name == name]
+        assert len(inner) == len(plain) and all(s.parent == top.id for s in inner)
+    read_bytes = sum(s.counters.get("h2d_bytes", 0) for s in spans if s.name == "seq-read")
+    assert read_bytes == sum(len(Path(p).read_bytes().lstrip(b"\n\r ")) for p in plain)
+
+
+def test_file_to_device_strips_a_long_blank_run(tmp_path):
+    """Leading blanks longer than a window of the search are all skipped."""
+    from fpmash_tpu_torch.device import file_to_device
+
+    body = b">a\n" + b"ACGT" * 100 + b"\n"
+    (tmp_path / "x.fa").write_bytes(b"\n \r" * 5000 + body)
+    got = file_to_device(str(tmp_path / "x.fa"), CPU, lstrip=b"\n\r ")
+    assert bytes(got.numpy()) == body
+    (tmp_path / "y.fa").write_bytes(b"\n" * 9000)
+    assert file_to_device(str(tmp_path / "y.fa"), CPU, lstrip=b"\n\r ").numel() == 0
+
+
+# on the card (no JAX here: ``python -m pytest tests/test_torch_screen_refseq.py -m gpu
+# --noconftest``)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels are built and run only there")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+def test_record_stream_kernel_equals_the_plain_version(cuda_device, tmp_path, monkeypatch):
+    """``csrc/seq_stream.cu`` against the plain version on every case, at
+    k = 21 and 1, from a misaligned view too; ``record_stream`` of the mixed
+    list through small pinned chunks; and the benchmark's 1 000 000 x 150
+    FASTQ."""
+    from bench_port.generators.metagenome import _fastq
+    from fpmash_tpu_torch import device as port_device
+    from fpmash_tpu_torch.ops import seq_stream as ops_seq
+
+    for name, data in STREAM_CASES.items():
+        host = _stripped(data)
+        for k in (21, 1):
+            want = ops_seq.seq_stream_plain(host, k)
+            before = ops_seq.LAUNCHES
+            got = ops_seq.seq_stream(host.to(cuda_device), k)
+            assert ops_seq.LAUNCHES == before + (7 if host.numel() else 0), name
+            assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want)), (name, k)
+        shifted = torch.cat([torch.zeros(3, dtype=torch.uint8), host]).to(cuda_device)[3:]
+        got = ops_seq.seq_stream(shifted, 21)
+        assert all(torch.equal(g.cpu(), w)
+                   for g, w in zip(got, ops_seq.seq_stream_plain(host, 21))), name
+    monkeypatch.setattr(port_device, "UPLOAD_CHUNK", 4096)
+    paths = _mixed_files(tmp_path)
+    want, want_len = _old_join(paths, 21)
+    stream, lengths = port_sketch.record_stream(paths, 21, cuda_device)
+    assert stream.device.type == "cuda"
+    assert bytes(stream.cpu().numpy()) == want and lengths.tolist() == want_len
+    rng = np.random.default_rng(5)
+    reads = np.frombuffer(b"ACGTN", np.uint8)[rng.integers(0, 5, (1_000_000, 150))]
+    big = torch.from_numpy(np.frombuffer(_fastq(reads, "s0r", "I"), np.uint8).copy())
+    got = ops_seq.seq_stream(big.to(cuda_device), 21)
+    want = ops_seq.seq_stream_plain(big.to(cuda_device), 21)
+    assert got[1].numel() == 1_000_000 and bool((got[1] == 150).all())
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
